@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``uwcv_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero):
+
+1. build the CUDA kernels from ``uwcv_tpu_torch/csrc/`` (one ``nvcc`` per
+   source, started together);
+2. hold each kernel against its plain PyTorch version at the main path's
+   shapes (RoIAlign: f32 at max rel err <= 1e-4, bf16 at max abs err <=
+   2e-2·max|ref|; NMS: identical keep masks) and time both with CUDA events;
+3. gate golden: the committed R26/FPN-64 gate checkpoint through
+   ``Predictor.predict_batch`` in f32 (TF32 off) against the JAX package's
+   outputs committed in ``tests/data/torch_port_gate_golden.npz``;
+4. full width: R50-FPN-256 at the default config in bf16 with seeded
+   weights, a batch of 8 grayscale 1024×1280 images, 2 warm-up and 5 timed
+   batches; the kernels' launch counts are zeroed just before and read just
+   after, and must show both kernels on the path.
+
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
+as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
+without one it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_gate_golden.npz")
+GATE_CKPT = os.path.join(REPO, "assets", "gate", "gate_ckpt.npz")
+
+# H100 SXM data-sheet peaks (dense), for the roofline bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound(bytes_moved: float, flops: float, dtype) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- kernels
+
+def _proposal_like_rois(rng, b, r, h, w):
+    """Boxes the size mix of RPN proposals (log-uniform 8–600 px sides)
+    inside an h×w canvas, plus one image-wide 20:1 scale bar per image."""
+    side = np.exp(rng.uniform(np.log(8), np.log(600), (b, r, 2)))
+    ctr = rng.uniform(0, 1, (b, r, 2)) * [w, h]
+    boxes = np.concatenate([ctr - side / 2, ctr + side / 2], -1)
+    boxes[..., 0::2] = boxes[..., 0::2].clip(0, w)
+    boxes[..., 1::2] = boxes[..., 1::2].clip(0, h)
+    boxes[:, 0] = [20.0, h / 2 - 25.0, w - 20.0, h / 2 + 25.0]   # ~20:1 bar
+    return torch.from_numpy(boxes.astype(np.float32))
+
+
+def check_roi_align(dev):
+    from uwcv_tpu_torch.ops.roi_align import (
+        level_canvas,
+        level_strides,
+        roi_align_windows,
+        roi_align_windows_reference,
+        window_geometry,
+    )
+
+    rng = np.random.default_rng(1)
+    b, h, w = 8, 832, 1024          # 1024×1280 inputs → 832×1024 canvas
+    strides = {f"p{l}": 2 ** l for l in range(2, 6)}
+    cases, timed = [], None
+    for c in (256, 64):
+        feats32 = {f"p{l}": torch.from_numpy(rng.standard_normal(
+            (b, h >> l, w >> l, c), dtype=np.float32)).to(dev)
+            for l in range(2, 6)}
+        for dtype in (torch.bfloat16, torch.float32):
+            canvas, shapes = level_canvas(
+                {k: v.to(dtype) for k, v in feats32.items()}, 32)
+            assert tuple(canvas.shape) == (5 * b, 208, 256, c), canvas.shape
+            for p, r_per in ((7, 1000), (14, 50)):
+                rois = _proposal_like_rois(rng, b, r_per, h, w).to(dev)
+                li, y0, x0, wy, wx = window_geometry(
+                    rois.reshape(-1, 4), shapes, level_strides(strides), p,
+                    224.0, 4, 2, 32)
+                slab = (torch.arange(b, device=dev).repeat_interleave(r_per)
+                        * 5 + li).to(torch.int32)
+                args = (canvas, slab, y0.to(torch.int32), x0.to(torch.int32),
+                        wy, wx)
+                got = roi_align_windows(*args)
+                want = roi_align_windows_reference(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ref = want.float().abs().max().item()
+                ok = (err <= 1e-4 * ref if dtype == torch.float32
+                      else err <= 2e-2 * ref)
+                case = {"dtype": str(dtype).replace("torch.", ""), "C": c,
+                        "P": p, "R": b * r_per, "max_abs_err": err,
+                        "max_abs_ref": ref, "ok": ok}
+                log(f"  roi_align_windows {case}")
+                if not ok:
+                    raise RuntimeError(f"roi_align_windows disagrees: {case}")
+                if c == 256 and dtype == torch.bfloat16:
+                    case["ms"] = cuda_ms(lambda: roi_align_windows(*args))
+                    case["plain_ms"] = cuda_ms(
+                        lambda: roi_align_windows_reference(*args))
+                    case["bound_ms"], case["bound_by"] = _roi_bound(*args)
+                    log(f"    kernel {case['ms']:.4f} ms, plain "
+                        f"{case['plain_ms']:.4f} ms, bound "
+                        f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+                    if p == 7:
+                        timed = case
+                cases.append(case)
+    return timed, cases
+
+
+def _roi_bound(canvas, slab, y0, x0, wy, wx):
+    """Least time for one call: every canvas cell some window covers read
+    once, weights and origins read once, the pooled output written once;
+    operations = the two dense contractions."""
+    r, p, win = wy.shape
+    s, h, w, c = canvas.shape
+    diff = torch.zeros((s, h + 1, w + 1), dtype=torch.int32,
+                       device=canvas.device)
+    sl, ys, xs = slab.long(), y0.long(), x0.long()
+    one = torch.ones_like(sl, dtype=torch.int32)
+    for dy, dx, sign in ((0, 0, 1), (win, 0, -1), (0, win, -1),
+                         (win, win, 1)):
+        diff.index_put_((sl, ys + dy, xs + dx), one * sign, accumulate=True)
+    covered = int((diff.cumsum(1).cumsum(2) > 0).sum().item())
+    elem = canvas.element_size()
+    bytes_moved = (covered * c * elem + 2 * r * p * win * 4 + 3 * r * 4
+                   + r * p * p * c * elem)
+    flops = 2.0 * r * p * win * win * c + 2.0 * r * p * p * win * c
+    return bound(bytes_moved, flops, canvas.dtype)
+
+
+def _nms_problems(rng, problems, n, h, w):
+    """Score-sorted boxes clustered around a few objects each, so greedy
+    suppression chains form; the last tenth are invalid padding."""
+    ctr = rng.uniform(0, 1, (problems, 40, 2)) * [w, h]
+    size = rng.uniform(16, 200, (problems, 40, 2))
+    pick = rng.integers(0, 40, (problems, n))
+    c = np.take_along_axis(ctr, pick[..., None], 1) + rng.normal(
+        0, 6, (problems, n, 2))
+    s = np.take_along_axis(size, pick[..., None], 1) * rng.uniform(
+        0.8, 1.25, (problems, n, 2))
+    boxes = np.concatenate([c - s / 2, c + s / 2], -1).astype(np.float32)
+    valid = np.ones((problems, n), bool)
+    valid[:, n - n // 10:] = False
+    return torch.from_numpy(boxes), torch.from_numpy(valid)
+
+
+def check_nms(dev):
+    from uwcv_tpu_torch.ops.nms import nms_greedy, nms_greedy_reference
+
+    rng = np.random.default_rng(2)
+    # one batch of 8: the RPN's 8×5 per-level problems (N = pre_nms_topk
+    # 1000) at 0.7 and the 8 class-offset detection problems (N = 1024) at 0.5
+    launches = []
+    for problems, n, thr in ((40, 1000, 0.7), (8, 1024, 0.5)):
+        boxes, valid = _nms_problems(rng, problems, n, 832, 1024)
+        launches.append((boxes.to(dev), valid.to(dev), thr))
+    kept_pairs, mismatches, n_kept, max_err = 0, 0, 0, 0.0
+    for boxes, valid, thr in launches:
+        got = nms_greedy(boxes, valid, thr)
+        want = nms_greedy_reference(boxes, valid, thr)
+        mismatches += int((got != want).sum().item())
+        max_err = max(max_err, (got.float() - want.float()).abs().max().item())
+        n_kept += int(want.sum().item())
+        # IoU evaluations the greedy walk needs: each kept i against the
+        # valid j > i
+        n_valid = valid.sum(1, keepdim=True)
+        idx = torch.arange(boxes.shape[1], device=dev)[None]
+        kept_pairs += int(((n_valid - idx - 1).clamp_min(0) * want).sum())
+    log(f"  nms_greedy: {mismatches} keep-mask mismatches, {n_kept} kept")
+    if mismatches:
+        raise RuntimeError(f"nms_greedy disagrees in {mismatches} entries")
+
+    run = lambda f: [f(bx, v, t) for bx, v, t in launches]
+    ms = cuda_ms(lambda: run(nms_greedy))
+    plain_ms = cuda_ms(lambda: run(nms_greedy_reference), reps=20, warmup=1)
+    n_boxes = sum(bx.shape[0] * bx.shape[1] for bx, _, _ in launches)
+    # 16 B box + 1 B valid read, 1 B keep written; ~13 f32 ops per IoU test
+    b_ms, b_by = bound(n_boxes * 18, kept_pairs * 13.0, torch.float32)
+    log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}); the greedy walk's sequential dependency "
+        f"is not in this bound")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": max_err,
+            "problems": [[bx.shape[0], bx.shape[1], t] for bx, _, t in launches]}
+
+
+# ---------------------------------------------------------------- golden
+
+def _mask_iou(a, b):
+    inter = np.logical_and(a, b).sum()
+    union = np.logical_or(a, b).sum()
+    return 1.0 if union == 0 else inter / union
+
+
+def check_gate_golden(dev):
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.weights import load_npz
+
+    # f32 golden: cuDNN convolutions default to TF32 in f32, so turn TF32
+    # off for convolutions and matmuls alike
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    cfg = Config.from_dict(json.loads(str(g["config_json"])))
+    assert cfg.model.dtype == "float32"
+    pred = Predictor(cfg, load_npz(GATE_CKPT), device=dev)
+    images = [np.repeat(im, 3, axis=-1) for im in g["images"]]
+    insts = pred.predict_batch(images)
+    worst_iou, n_inst = 1.0, 0
+    for i, inst in enumerate(insts):
+        v = inst.valid
+        want_v = g["valid"][i]
+        if v.sum() != want_v.sum():
+            raise RuntimeError(f"golden image {i}: {v.sum()} valid vs "
+                               f"{want_v.sum()} from JAX")
+        k = int(v.sum())
+        if not np.array_equal(inst.classes[v], g["classes"][i][want_v]):
+            raise RuntimeError(f"golden image {i}: classes differ")
+        db = np.abs(inst.boxes[v] - g["boxes"][i][want_v]).max(initial=0.0)
+        ds = np.abs(inst.scores[v] - g["scores"][i][want_v]).max(initial=0.0)
+        if db > 1e-2 or ds > 1e-4:
+            raise RuntimeError(f"golden image {i}: box err {db}, score err {ds}")
+        want_m = np.unpackbits(g["masks"][i][:k], axis=-1).astype(bool)
+        for j in range(k):
+            worst_iou = min(worst_iou, _mask_iou(inst.masks[v][j], want_m[j]))
+        n_inst += k
+    log(f"  gate golden: {len(insts)} images, {n_inst} instances match JAX; "
+        f"worst mask IoU {worst_iou:.4f}")
+    if worst_iou < 0.99:
+        raise RuntimeError(f"golden mask IoU {worst_iou} < 0.99")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+# ---------------------------------------------------------------- full width
+
+def seeded_flax_params(model_cfg, seed: int):
+    """Random weights in the Flax layout (lecun-normal kernels, Detectron2's
+    small-std RPN and predictor inits), made with numpy from ``seed``.  The
+    class-0 logit and the mask-predictor biases are raised so that the
+    untrained model yields confident, solid masks and the mask tail (score
+    floor, topology cleanup, overlap claim) keeps work to do."""
+    from uwcv_tpu_torch.weights import flax_param_shapes
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, shape in sorted(flax_param_shapes(model_cfg).items()):
+        if key.endswith("frozen_bn_scale"):
+            a = np.ones(shape)
+        elif key.endswith("bias") or key.endswith("frozen_bn_bias"):
+            a = np.zeros(shape)
+        else:
+            std = 1.0 / np.sqrt(np.prod(shape[:-1]))
+            if "rpn_head" in key or "cls_score" in key:
+                std = 0.01
+            elif "bbox_pred" in key:
+                std = 0.001
+            a = rng.standard_normal(shape) * std
+        out[key] = a.astype(np.float32)
+    out["params/box_head/cls_score/bias"][0] = 4.0
+    out["params/mask_head/predictor/bias"][:] = 4.0
+    return out
+
+
+def run_full_width(dev):
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
+
+    cfg = Config()                       # R50-FPN-256, bf16, 1024×1344 pad
+    cfg.model.roi_score_thresh_test = 0.0
+    pred = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
+    rng = np.random.default_rng(3)
+    b = 8
+    images = [np.repeat(rng.integers(0, 256, (1024, 1280, 1), dtype=np.uint8),
+                        3, axis=-1) for _ in range(b)]
+    warmup, timed = 2, 5
+
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_windows.launches = 0
+    nms_greedy.launches = 0
+    for _ in range(warmup):
+        pred.predict_batch(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        insts = pred.predict_batch(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # one more batch, staged by hand, for the per-stage breakdown
+    pred.model.marks = []
+    host = {}
+    t = time.perf_counter()
+    ops, unmap = pred.stage_batch(images)
+    host["stage_batch (host resize, pad, H2D)"] = time.perf_counter() - t
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.perf_counter()
+    out = pred._run(*ops)
+    host["_run (enqueue + tail syncs)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    insts_s = pred.to_instances(out + tuple(unmap))
+    host["to_instances (sync, D2H, unpack)"] = time.perf_counter() - t
+    marks, pred.model.marks = pred.model.marks, None
+    launches = {"roi_align_windows": roi_align_windows.launches,
+                "nms_greedy": nms_greedy.launches}
+    n_batches = warmup + timed + 1
+    peak = torch.cuda.max_memory_allocated()
+
+    stages, prev = {}, start
+    for name, ev in marks:
+        stages[name] = prev.elapsed_time(ev)
+        prev = ev
+    log(f"  full width R50-FPN-256 bf16, batch {b} of 1024×1280 → canvas "
+        f"{tuple(ops[0].shape[1:3])}: {b * timed / wall:.2f} img/s "
+        f"({wall / timed * 1e3:.1f} ms/batch, host clock, {timed} batches)")
+    log("  device stages (CUDA events, ms): " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}))
+    log("  host stages (host clock, ms): " + json.dumps(
+        {k: round(v * 1e3, 1) for k, v in host.items()}))
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; launches over "
+        f"{n_batches} batches: {launches}")
+
+    if launches["roi_align_windows"] != 2 * n_batches:
+        raise RuntimeError(f"RoIAlign kernel launches {launches} != 2 per batch")
+    if launches["nms_greedy"] != 2 * n_batches:
+        raise RuntimeError(f"NMS kernel launches {launches} != 2 per batch "
+                           f"(RPN 5·B problems + detection B problems)")
+    for inst in insts + insts_s:
+        if not (np.isfinite(inst.boxes).all() and np.isfinite(inst.scores).all()):
+            raise RuntimeError("non-finite detections")
+        nonempty = inst.valid & inst.masks.reshape(len(inst.valid), -1).any(1)
+        if not nonempty.any():
+            raise RuntimeError("an image has no valid detection with a mask")
+    log(f"  valid detections per image: {[int(i.valid.sum()) for i in insts]}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from uwcv_tpu_torch import kernels
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    info = kernels.build()
+    log(f"[build] {time.perf_counter() - t0:.1f} s: " + ", ".join(
+        f"{k} {v['seconds']:.1f} s" for k, v in info.items()))
+    for name, v in info.items():
+        for line in v["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("[kernels] against their plain versions")
+    roi_timed, roi_cases = check_roi_align(dev)
+    nms_rec = check_nms(dev)
+
+    log("[golden] gate checkpoint vs committed JAX outputs")
+    check_gate_golden(dev)
+
+    log("[full width] main path")
+    launches = run_full_width(dev)
+
+    records = [
+        {"name": "roi_align_windows", "route": "cuda",
+         "source": "uwcv_tpu_torch/csrc/roi_align.cu",
+         "replaces": "uwcv_tpu/ops/pallas/roi_align_kernel.py:89",
+         "launches": launches["roi_align_windows"],
+         "max_abs_err": roi_timed["max_abs_err"], "ms": roi_timed["ms"],
+         "plain_ms": roi_timed["plain_ms"], "bound_ms": roi_timed["bound_ms"],
+         "bound_by": roi_timed["bound_by"], "library_ms": None,
+         "shape": {k: roi_timed[k] for k in ("dtype", "C", "P", "R")},
+         "cases": roi_cases},
+        {"name": "nms_greedy", "route": "cuda",
+         "source": "uwcv_tpu_torch/csrc/nms.cu",
+         "replaces": "uwcv_tpu/ops/pallas/nms_kernel.py:64",
+         "launches": launches["nms_greedy"],
+         "max_abs_err": nms_rec["max_abs_err"], "ms": nms_rec["ms"],
+         "plain_ms": nms_rec["plain_ms"], "bound_ms": nms_rec["bound_ms"],
+         "bound_by": nms_rec["bound_by"], "library_ms": None,
+         "problems": nms_rec["problems"]},
+    ]
+    log(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

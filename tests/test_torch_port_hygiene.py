@@ -1,0 +1,129 @@
+"""Rules the port keeps: no JAX and nothing of ``uwcv_tpu`` in
+``uwcv_tpu_torch`` or ``chip_smoke.py``; entry points refuse to fall back
+to the CPU silently; the CPU path never launches (or counts) a kernel."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "uwcv_tpu_torch")
+CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")
+
+
+def _port_sources():
+    for d, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield CHIP_SMOKE
+
+
+def _modules():
+    for path in _port_sources():
+        if path == CHIP_SMOKE:
+            yield "chip_smoke"
+            continue
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        yield rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+def test_every_module_imports_with_jax_blocked():
+    """A fresh interpreter in which ``import jax`` (and flax, and the JAX
+    package) fails imports every module of the port and chip_smoke.py."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'uwcv_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_jax_or_reference_package_imports():
+    """AST scan: no import of jax, flax or uwcv_tpu (the JAX package) in
+    any source of the port."""
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "uwcv_tpu")
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in banned, f"{path}: imports {name}"
+
+
+def test_predictor_without_device_raises_without_cuda(monkeypatch):
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(Config())
+
+
+def test_unported_paste_tail_raises():
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+
+    cfg = Config()
+    cfg.postprocess.paste_chunk = 10
+    with pytest.raises(NotImplementedError):
+        Predictor(cfg, device="cpu")
+
+
+def test_cpu_path_never_touches_launch_counters():
+    """A whole CPU batch through the predictor takes the plain versions and
+    leaves both kernel launch counters where they were."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
+
+    cfg = Config()
+    m = cfg.model
+    m.depth, m.fpn_channels, m.box_fc_dim, m.dtype = 26, 32, 32, "float32"
+    m.rpn_pre_nms_topk_test, m.rpn_post_nms_topk_test = 50, 40
+    m.detections_per_image, m.roi_score_thresh_test = 10, 0.0
+    cfg.input.test_short_edge = cfg.input.test_max_size = 96
+    cfg.input.pad_size_test = (128, 128)
+    torch.manual_seed(0)
+    pred = Predictor(cfg, device="cpu")
+    before = (nms_greedy.launches, roi_align_windows.launches)
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (120, 100, 3), dtype=np.uint8)
+              for _ in range(2)]
+    for host_resize in (True, False):      # False: the device resample
+        cfg.input.host_resize = host_resize
+        insts = pred.predict_batch(images)
+        assert len(insts) == 2 and insts[0].masks.shape == (10, 128, 128)
+    assert (nms_greedy.launches, roi_align_windows.launches) == before
+
+
+def test_chip_smoke_alone_fails_without_output(tmp_path):
+    """chip_smoke.py needs the rest of the checkout (and a card): copied
+    into an otherwise empty directory it exits non-zero and prints no
+    result line."""
+    with open(CHIP_SMOKE) as f:
+        src = f.read()
+    ast.parse(src)
+    (tmp_path / "chip_smoke.py").write_text(src)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,326 @@
+"""The port's ops (``uwcv_tpu_torch``) against the JAX package's, on the CPU.
+
+The same numpy inputs go through the JAX function and its port; Pallas
+kernels run in interpret mode, as tests/test_pallas_kernels.py runs them.
+On the CPU each kernel wrapper takes its plain PyTorch version, so these
+tests hold the plain versions (and the geometry around the kernels) against
+the TPU kernels' semantics.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.ndimage as ndi
+import torch
+
+from tests.test_ops_morphology_paste import _ring, _snake
+from tests.test_ops_nms_roialign import _ramp_feats, roi_align_oracle
+from uwcv_tpu.data.augment import pack_bitmasks as j_pack
+from uwcv_tpu.models.anchors import generate_anchors as j_anchors
+from uwcv_tpu.ops import mask_paste as j_paste
+from uwcv_tpu.ops import morphology as j_morph
+from uwcv_tpu.ops.nms import NEG_INF, nms_mask as j_nms_mask
+from uwcv_tpu.ops.pallas.nms_kernel import nms_fixpoint_pallas
+from uwcv_tpu.ops.roi_align import (
+    multilevel_roi_align,
+    multilevel_roi_align_batched as j_pool_batched,
+)
+from uwcv_tpu.structures import boxes as j_boxes
+from uwcv_tpu.utils.image import device_resize as j_device_resize
+from uwcv_tpu_torch.data.augment import pack_bitmasks
+from uwcv_tpu_torch.models.anchors import generate_anchors
+from uwcv_tpu_torch.ops import morphology as morph
+from uwcv_tpu_torch.ops.mask_paste import paste_masks
+from uwcv_tpu_torch.ops.nms import (
+    batched_class_nms_mask,
+    nms_greedy,
+    nms_greedy_reference,
+    nms_mask,
+    nms_mask_batched,
+)
+from uwcv_tpu_torch.ops.roi_align import multilevel_roi_align_batched
+from uwcv_tpu_torch.structures import boxes as t_boxes
+from uwcv_tpu_torch.utils.image import device_resize, host_resize
+
+T = torch.from_numpy
+STRIDES = {f"p{l}": 2 ** l for l in range(2, 6)}
+
+
+def _random_boxes(rng, n, lo=20, hi=200, smin=10, smax=60):
+    c = rng.uniform(lo, hi, (n, 2))
+    s = rng.uniform(smin, smax, (n, 2))
+    return np.concatenate([c - s / 2, c + s / 2], 1).astype(np.float32)
+
+
+# ---------------------------------------------------------------- NMS (B2)
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nms_mask_matches_jax(seed):
+    """N=300 (not a multiple of 128) with NEG_INF padding and tied
+    scores: the port's keep mask equals the XLA fixpoint's."""
+    rng = np.random.default_rng(seed)
+    n = 300
+    boxes = _random_boxes(rng, n)
+    scores = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    scores[40:60] = scores[40]            # ties: lower index wins
+    scores[-25:] = NEG_INF
+    want = np.asarray(j_nms_mask(jnp.asarray(boxes), jnp.asarray(scores), 0.5))
+    got = nms_mask(T(boxes), T(scores), 0.5).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_nms_plain_matches_pallas_interpret(seed):
+    """The kernel's plain version against the Pallas greedy kernel in
+    interpret mode, on score-sorted boxes padded to the 128-lane tile."""
+    rng = np.random.default_rng(seed)
+    n, n_pad = 200, 256
+    boxes = np.zeros((n_pad, 4), np.float32)
+    boxes[:n] = _random_boxes(rng, n)
+    valid = np.zeros(n_pad, bool)
+    valid[:n - 17] = True
+    want = np.asarray(nms_fixpoint_pallas(jnp.asarray(boxes),
+                                          jnp.asarray(valid), 0.7,
+                                          interpret=True))
+    got = nms_greedy_reference(T(boxes)[None], T(valid)[None], 0.7)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_nms_chain_suppression():
+    # A overlaps B, B overlaps C, A∩C small: greedy keeps A and C
+    boxes = np.asarray([[0, 0, 10, 10], [6, 0, 16, 10], [12, 0, 22, 10]],
+                       np.float32)
+    want = np.asarray(nms_fixpoint_pallas(jnp.asarray(boxes),
+                                          jnp.ones(3, bool), 0.2,
+                                          interpret=True))
+    got = nms_greedy(T(boxes)[None], torch.ones(1, 3, dtype=torch.bool), 0.2)
+    assert list(want) == [True, False, True]
+    np.testing.assert_array_equal(got[0].numpy(), want)
+
+
+def test_nms_batched_unequal_sizes():
+    """Problems of unequal N padded with NEG_INF entries into one batched
+    call give each problem's own keep mask."""
+    rng = np.random.default_rng(7)
+    sizes = [300, 77, 5, 1]
+    n = max(sizes)
+    boxes = np.zeros((len(sizes), n, 4), np.float32)
+    scores = np.full((len(sizes), n), NEG_INF, np.float32)
+    for i, k in enumerate(sizes):
+        boxes[i, :k] = _random_boxes(rng, k)
+        scores[i, :k] = rng.uniform(0, 1, k)
+    got = nms_mask_batched(T(boxes), T(scores), 0.6).numpy()
+    for i, k in enumerate(sizes):
+        want = np.asarray(j_nms_mask(jnp.asarray(boxes[i, :k]),
+                                     jnp.asarray(scores[i, :k]), 0.6))
+        np.testing.assert_array_equal(got[i, :k], want)
+        assert not got[i, k:].any()
+
+
+def test_batched_class_nms_matches_jax():
+    from uwcv_tpu.ops.nms import batched_class_nms_mask as j_batched
+
+    rng = np.random.default_rng(8)
+    b, n = 3, 120
+    boxes = np.stack([_random_boxes(rng, n) for _ in range(b)])
+    scores = rng.uniform(0, 1, (b, n)).astype(np.float32)
+    classes = rng.integers(0, 4, (b, n)).astype(np.int32)
+    got = batched_class_nms_mask(T(boxes), T(scores), T(classes), 0.5).numpy()
+    for i in range(b):
+        want = np.asarray(j_batched(jnp.asarray(boxes[i]),
+                                    jnp.asarray(scores[i]),
+                                    jnp.asarray(classes[i]), 0.5))
+        np.testing.assert_array_equal(got[i], want)
+
+
+# ------------------------------------------------------------ RoIAlign (B1)
+
+@pytest.mark.parametrize("c,p", [(8, 7), (8, 14), (64, 7), (64, 14)])
+def test_roi_align_matches_pallas_interpret_and_xla(c, p):
+    """Geometry + the kernel's plain version against the fused Pallas
+    kernel (interpret mode) and the vmapped XLA pooler, incl. an
+    image-wide bar (virtual-p6 bump) and a zero box (invalid detection)."""
+    rng = np.random.default_rng(5)
+    b = 2
+    feats = {f"p{l}": rng.normal(0, 1, (b, 256 >> (l - 2), 320 >> (l - 2), c))
+             .astype(np.float32) for l in range(2, 6)}
+    rois = []
+    for _ in range(b):
+        ctr = rng.uniform(60, 900, (13, 2))
+        wh = rng.uniform(16, 400, (13, 2))
+        bx = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+        rois.append(np.concatenate([bx, [[10, 200, 1000, 230], [0, 0, 0, 0]]]))
+    rois = np.stack(rois).astype(np.float32)
+    jf = {k: jnp.asarray(v) for k, v in feats.items()}
+    got = multilevel_roi_align_batched(
+        {k: T(v) for k, v in feats.items()}, T(rois), STRIDES, p).numpy()
+    for use_pallas, interpret in ((True, True), (False, False)):
+        want = np.asarray(j_pool_batched(jf, jnp.asarray(rois), STRIDES, p,
+                                         interpret=interpret,
+                                         use_pallas=use_pallas))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_roi_align_image_wide_full_coverage():
+    """The cases of test_ops_nms_roialign.py::test_image_wide_roi_full_coverage:
+    a 1300×12 px scale bar and an image-sized box on exact linear ramps."""
+    feats = _ramp_feats(1024, 1344)
+    rois = np.array([[20.0, 500.0, 1320.0, 512.0],
+                     [10.0, 10.0, 1334.0, 1014.0]], np.float32)
+    want = np.asarray(multilevel_roi_align(feats, jnp.asarray(rois),
+                                           STRIDES, 7))
+    got = multilevel_roi_align_batched(
+        {k: T(np.array(v))[None] for k, v in feats.items()},
+        T(rois)[None], STRIDES, 7)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    # and the coverage the JAX test demands of its oracle
+    np.testing.assert_allclose(got[0], roi_align_oracle(
+        np.asarray(feats["p3"]), rois[0], 8, 7), atol=15.0)
+    np.testing.assert_allclose(got[1], roi_align_oracle(
+        np.asarray(feats["p5"]), rois[1], 32, 7), atol=15.0)
+
+
+# ------------------------------------------------------- boxes and anchors
+
+def test_boxes_match_jax():
+    rng = np.random.default_rng(9)
+    a = _random_boxes(rng, 40, lo=-20, hi=300)
+    b = _random_boxes(rng, 30, lo=-20, hi=300)
+    a[3] = 0.0                                  # padded box → 0 IoU
+    np.testing.assert_array_equal(
+        t_boxes.box_iou(T(a), T(b)).numpy(),
+        np.asarray(j_boxes.box_iou(jnp.asarray(a), jnp.asarray(b))))
+    np.testing.assert_array_equal(
+        t_boxes.clip_boxes(T(a), (200, 150)).numpy(),
+        np.asarray(j_boxes.clip_boxes(jnp.asarray(a), (200, 150))))
+    np.testing.assert_array_equal(
+        t_boxes.nonempty_boxes(T(a), 1.0).numpy(),
+        np.asarray(j_boxes.nonempty_boxes(jnp.asarray(a), 1.0)))
+    deltas = rng.normal(0, 2, (40, 4)).astype(np.float32)
+    deltas[0, 2:] = 50.0                        # hits the scale clamp
+    # decode: XLA fuses multiply-adds and has its own exp, so coordinates
+    # may differ in the last bit (f32 eps = 1.2e-7)
+    for w in ((1.0, 1.0, 1.0, 1.0), (10.0, 10.0, 5.0, 5.0)):
+        np.testing.assert_allclose(
+            t_boxes.decode_deltas(T(deltas), T(a), w).numpy(),
+            np.asarray(j_boxes.decode_deltas(jnp.asarray(deltas),
+                                             jnp.asarray(a), w)),
+            rtol=1e-6, atol=1e-5)
+
+
+def test_anchors_match_jax_exactly():
+    args = ((96, 160), (4, 8, 16, 32, 64),
+            ((32.0,), (64.0,), (128.0,), (256.0,), (512.0,)),
+            (0.1, 0.5, 1.0, 2.0, 10.0))
+    for got, want in zip(generate_anchors(*args), j_anchors(*args)):
+        np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------- morphology, paste, bit-packing
+
+def _morph_fixtures():
+    rng = np.random.default_rng(5)
+    m = [_ring(), _snake(21, 21), np.zeros((9, 9), bool)]
+    m[2][2, 2:6] = True
+    m[2][6, 2:7] = True
+    m[2][2:7, 2] = True
+    m[2][3, 6] = m[2][4:6, 6] = True
+    m += [rng.random((20, 24)) > 0.6 for _ in range(4)]
+    m += [rng.random((24, 24)) > 0.75]
+    return m
+
+
+def test_morphology_matches_jax_bit_exact():
+    for m in _morph_fixtures():
+        tm, jm = T(m), jnp.asarray(m)
+        for conn in (1, 2):
+            np.testing.assert_array_equal(morph.dilate(tm, conn).numpy(),
+                                          np.asarray(j_morph.dilate(jm, conn)))
+            np.testing.assert_array_equal(morph.erode(tm, conn).numpy(),
+                                          np.asarray(j_morph.erode(jm, conn)))
+        np.testing.assert_array_equal(morph.fill_holes(tm).numpy(),
+                                      np.asarray(j_morph.fill_holes(jm)))
+        np.testing.assert_array_equal(morph.fill_holes(tm).numpy(),
+                                      ndi.binary_fill_holes(m))
+        np.testing.assert_array_equal(
+            morph.close_open_smooth(tm).numpy(),
+            np.asarray(j_morph.close_open_smooth(jm)))
+        np.testing.assert_array_equal(
+            morph.connected_components(tm).numpy(),
+            np.asarray(j_morph.connected_components(jm)))
+        assert int(morph.count_components(tm)) == int(
+            j_morph.count_components(jm))
+    # batched stack: one flood for all masks
+    stack = np.stack([_ring(), np.zeros((32, 32), bool)])
+    np.testing.assert_array_equal(
+        morph.fill_holes(T(stack)).numpy(),
+        np.asarray(jax.vmap(j_morph.fill_holes)(jnp.asarray(stack))))
+
+
+def test_remove_overlaps_and_clean_head_masks_match_jax():
+    rng = np.random.default_rng(11)
+    masks = rng.random((9, 40, 48)) > 0.5
+    order = rng.permutation(9).astype(np.int32)
+    np.testing.assert_array_equal(
+        morph.remove_overlaps(T(masks), T(order).long()).numpy(),
+        np.asarray(j_morph.remove_overlaps(jnp.asarray(masks),
+                                           jnp.asarray(order))))
+    # smooth blobs + noise: some fragment, some have holes
+    yy, xx = np.mgrid[0:28, 0:28]
+    probs = []
+    for i in range(12):
+        cy, cx, r = rng.uniform(8, 20), rng.uniform(8, 20), rng.uniform(4, 10)
+        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
+        noise = rng.normal(0, 0.25 if i % 2 else 0.02, (28, 28))
+        probs.append(np.clip(blob + noise, 0, 1))
+    probs = np.stack(probs).astype(np.float32)
+    got_m, got_s = morph.clean_head_masks(T(probs))
+    want_m, want_s = j_morph.clean_head_masks(jnp.asarray(probs))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    assert not got_s.all() and got_s.any()
+
+
+def test_paste_and_pack_match_jax_bit_exact():
+    """The fixture of test_paste_select_pack_matches_unfused_pipeline."""
+    rng = np.random.default_rng(11)
+    d, m, h, w = 17, 28, 128, 160
+    probs = rng.uniform(0, 1, (d, m, m)).astype(np.float32)
+    x1 = rng.uniform(0, w - 30, d)
+    y1 = rng.uniform(0, h - 30, d)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(10, 60, d),
+                      y1 + rng.uniform(10, 60, d)], axis=1).astype(np.float32)
+    want = np.asarray(j_paste.paste_masks(jnp.asarray(probs),
+                                          jnp.asarray(boxes), (h, w)))
+    got = paste_masks(T(probs), T(boxes), (h, w)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pack_bitmasks(T(got)).numpy(),
+                                  np.asarray(j_pack(jnp.asarray(want))))
+    np.testing.assert_array_equal(pack_bitmasks(T(got)).numpy(),
+                                  np.packbits(want, axis=-1))
+
+
+# ----------------------------------------------------------------- resize
+
+@pytest.mark.parametrize("scale", [0.78125, 0.5, 1.0, 1.7])
+def test_device_resize_matches_scale_and_translate(scale):
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    want = np.asarray(j_device_resize(jnp.asarray(img), jnp.float32(scale),
+                                      128, 160))
+    got = device_resize(T(img), torch.tensor(scale), 128, 160).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape,out", [((1024, 1280), (800, 1000)),
+                                       ((300, 417), (256, 356))])
+def test_host_resize_within_two_levels_of_pil(shape, out):
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    img = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    want = np.asarray(Image.fromarray(img).resize(out[::-1], Image.BILINEAR))
+    got = host_resize(img, *out)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 2

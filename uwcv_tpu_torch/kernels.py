@@ -1,0 +1,127 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) and loaded with ``ctypes``.  Libraries live under
+``build/uwcv_tpu_torch/<hash>/`` next to the package, keyed by a hash of the
+sources and flags, so a fresh checkout builds them at first use and an edit
+rebuilds them.  No ``--use_fast_math``: the NMS kernel's IoU must round
+exactly as the plain PyTorch version does.
+
+Nothing here runs at import: the CPU tests import every module of the port
+on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "uwcv_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points of each source: name → argtypes (every one returns the
+# cudaError_t of its launch as an int)
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "roi_align": {
+        # canvas, slab, y0, x0, wy, wx, out, R, P, H, W, C, window, stream
+        "uwcv_roi_align_windows_f32": (_P,) * 7 + (_I,) * 6 + (_P,),
+        "uwcv_roi_align_windows_bf16": (_P,) * 7 + (_I,) * 6 + (_P,),
+    },
+    "nms": {
+        # boxes, valid, keep, P, N, threshold, stream
+        "uwcv_nms_greedy": (_P, _P, _P, _I, _I, _F, _P),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# name → {"seconds": build time (0 when cached), "ptxas": compiler report}
+build_info: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of uwcv_tpu_torch "
+                           "are built from csrc/ at first use")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named sources (all by default) that are not built yet,
+    one ``nvcc`` process per source, all started together.  Raises with the
+    compiler's output when a build fails."""
+    names = list(names or SIGNATURES)
+    pending = {}
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            build_info.setdefault(name, {"seconds": 0.0, "ptxas": "",
+                                         "path": out})
+            continue
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
+        pending[name] = (out, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for name, (out, tmp, t0, proc) in pending.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        build_info[name] = {"seconds": time.perf_counter() - t0,
+                            "ptxas": log, "path": out}
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: build_info[n] for n in names}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(build_info[name]["path"])
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
