@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``uwcv_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR]
 
 Phases (any failure raises and exits non-zero):
 
@@ -9,14 +9,23 @@ Phases (any failure raises and exits non-zero):
    source, started together);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes (RoIAlign: f32 at max rel err <= 1e-4, bf16 at max abs err <=
-   2e-2·max|ref|; NMS: identical keep masks) and time both with CUDA events;
+   2e-2·max|ref|; NMS: identical keep masks), edge cases included; time
+   both with CUDA events (``cuda_ms``), split a call's device time by
+   kernel with ``torch.profiler`` (``device_split``), and time RoIAlign
+   once more with its rois in (slab, y0, x0) order;
 3. gate golden: the committed R26/FPN-64 gate checkpoint through
    ``Predictor.predict_batch`` in f32 (TF32 off) against the JAX package's
    outputs committed in ``tests/data/torch_port_gate_golden.npz``;
 4. full width: R50-FPN-256 at the default config in bf16 with seeded
    weights, a batch of 8 grayscale 1024×1280 images, 2 warm-up and 5 timed
    batches; the kernels' launch counts are zeroed just before and read just
-   after, and must show both kernels on the path.
+   after, and must show both kernels on the path;
+5. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+   ``nms_greedy``) of the ``uwcv_tpu_torch`` package under DIR, e.g. an
+   earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
+   against these on the timed inputs of phase 2: each side in its own
+   process, in turns (DIR, this, this, DIR); their outputs must agree as
+   in phase 2.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
@@ -25,6 +34,7 @@ without one it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -47,21 +57,45 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events)."""
+def cuda_ms(fn, calls: int = 20, groups: int = 5, warmup: int = 3) -> float:
+    """Time of one call of ``fn`` in ms: CUDA events around ``calls``
+    back-to-back calls, the elapsed time over ``calls``, and the median of
+    ``groups`` such groups.  The device queue stays full, so host time per
+    call shows only where it outlasts the device work it enqueues."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def device_split(fn, calls: int = 10) -> dict:
+    """Device time per call of ``fn`` by kernel name, in ms, from a
+    ``torch.profiler`` trace of ``calls`` calls (names cut to 48 chars)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us > 0:
+            key = ev.key[:48]
+            split[key] = split.get(key, 0.0) + us / calls / 1e3
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
 
 def bound(bytes_moved: float, flops: float, dtype) -> tuple:
@@ -85,6 +119,9 @@ def _proposal_like_rois(rng, b, r, h, w):
 
 
 def check_roi_align(dev):
+    """Each case against the plain version; the bf16 C=256 cases (the main
+    path's) are timed.  → (the P=7 timed case, all cases, the timed cases'
+    arguments by P)."""
     from uwcv_tpu_torch.ops.roi_align import (
         level_canvas,
         level_strides,
@@ -96,7 +133,7 @@ def check_roi_align(dev):
     rng = np.random.default_rng(1)
     b, h, w = 8, 832, 1024          # 1024×1280 inputs → 832×1024 canvas
     strides = {f"p{l}": 2 ** l for l in range(2, 6)}
-    cases, timed = [], None
+    cases, timed, timed_args = [], None, {}
     for c in (256, 64):
         feats32 = {f"p{l}": torch.from_numpy(rng.standard_normal(
             (b, h >> l, w >> l, c), dtype=np.float32)).to(dev)
@@ -112,53 +149,98 @@ def check_roi_align(dev):
                     224.0, 4, 2, 32)
                 slab = (torch.arange(b, device=dev).repeat_interleave(r_per)
                         * 5 + li).to(torch.int32)
-                args = (canvas, slab, y0.to(torch.int32), x0.to(torch.int32),
+                full = (canvas, slab, y0.to(torch.int32), x0.to(torch.int32),
                         wy, wx)
-                got = roi_align_windows(*args)
-                want = roi_align_windows_reference(*args)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ref = want.float().abs().max().item()
-                ok = (err <= 1e-4 * ref if dtype == torch.float32
-                      else err <= 2e-2 * ref)
-                case = {"dtype": str(dtype).replace("torch.", ""), "C": c,
-                        "P": p, "R": b * r_per, "max_abs_err": err,
-                        "max_abs_ref": ref, "ok": ok}
-                log(f"  roi_align_windows {case}")
-                if not ok:
-                    raise RuntimeError(f"roi_align_windows disagrees: {case}")
-                if c == 256 and dtype == torch.bfloat16:
-                    case["ms"] = cuda_ms(lambda: roi_align_windows(*args))
-                    case["plain_ms"] = cuda_ms(
-                        lambda: roi_align_windows_reference(*args))
-                    case["bound_ms"], case["bound_by"] = _roi_bound(*args)
-                    log(f"    kernel {case['ms']:.4f} ms, plain "
-                        f"{case['plain_ms']:.4f} ms, bound "
-                        f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
-                    if p == 7:
-                        timed = case
-                cases.append(case)
-    return timed, cases
+                # the batch, one roi (the 20:1 bar) and none
+                for r in (b * r_per, 1, 0):
+                    args = full[:1] + tuple(t[:r] for t in full[1:])
+                    got = roi_align_windows(*args)
+                    want = roi_align_windows_reference(*args)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item() if r else 0.0
+                    ref = want.float().abs().max().item() if r else 0.0
+                    ok = tuple(got.shape) == (r, p, p, c) and (
+                        err <= 1e-4 * ref if dtype == torch.float32
+                        else err <= 2e-2 * ref)
+                    case = {"dtype": str(dtype).replace("torch.", ""),
+                            "C": c, "P": p, "R": r, "max_abs_err": err,
+                            "max_abs_ref": ref, "ok": ok,
+                            "subwindow_GB": _subwindow_bytes(*args) / 1e9}
+                    log(f"  roi_align_windows {case}")
+                    if not ok:
+                        raise RuntimeError(
+                            f"roi_align_windows disagrees: {case}")
+                    if c == 256 and dtype == torch.bfloat16 and r > 1:
+                        case["ms"] = cuda_ms(lambda: roi_align_windows(*args))
+                        case["plain_ms"] = cuda_ms(
+                            lambda: roi_align_windows_reference(*args),
+                            calls=5, groups=3)
+                        case["bound_ms"], case["bound_by"] = _roi_bound(*args)
+                        case["bound_whole_windows_ms"] = _roi_bound(
+                            *args, whole_windows=True)[0]
+                        # the same rois in (slab, y0, x0) order: blocks that
+                        # run together then share windows in L2
+                        key = ((args[1].long() * canvas.shape[1] + args[2])
+                               * canvas.shape[2] + args[3])
+                        order = torch.sort(key, stable=True).indices
+                        by_place = args[:1] + tuple(t[order] for t in args[1:])
+                        case["ms_rois_by_place"] = cuda_ms(
+                            lambda: roi_align_windows(*by_place))
+                        case["device_split_ms"] = device_split(
+                            lambda: roi_align_windows(*args))
+                        log(f"    kernel {case['ms']:.4f} ms (rois by place "
+                            f"{case['ms_rois_by_place']:.4f} ms), plain "
+                            f"{case['plain_ms']:.4f} ms, bound "
+                            f"{case['bound_ms']:.4f} ms ({case['bound_by']}; "
+                            f"whole windows "
+                            f"{case['bound_whole_windows_ms']:.4f} ms); "
+                            f"device split {case['device_split_ms']}")
+                        timed_args[p] = args
+                        if p == 7:
+                            timed = case
+                    cases.append(case)
+    return timed, cases, timed_args
 
 
-def _roi_bound(canvas, slab, y0, x0, wy, wx):
-    """Least time for one call: every canvas cell some window covers read
-    once, weights and origins read once, the pooled output written once;
-    operations = the two dense contractions."""
+def _subwindow_bytes(canvas, slab, y0, x0, wy, wx) -> int:
+    """Canvas bytes the kernel copies: each roi's nonzero wy × wx extent,
+    all C channels."""
+    from uwcv_tpu_torch.ops.roi_align import subwindow_extent
+
+    _, nh = subwindow_extent(wy.to(canvas.dtype))
+    _, nw = subwindow_extent(wx.to(canvas.dtype))
+    return int((nh * nw).sum()) * canvas.shape[-1] * canvas.element_size()
+
+
+def _roi_bound(canvas, slab, y0, x0, wy, wx, whole_windows=False):
+    """Least time for one call: every canvas cell that some roi's
+    sub-window (its nonzero wy × wx extent, the cells that reach the
+    output) covers, read once; weights and origins read once; the pooled
+    output written once.  Operations: the two contractions over the
+    sub-windows.  ``whole_windows`` counts whole win × win windows instead."""
+    from uwcv_tpu_torch.ops.roi_align import subwindow_extent
+
     r, p, win = wy.shape
     s, h, w, c = canvas.shape
+    if whole_windows:
+        hlo = wlo = torch.zeros_like(y0, dtype=torch.int64)
+        nh = nw = torch.full_like(hlo, win)
+    else:
+        hlo, nh = subwindow_extent(wy.to(canvas.dtype))
+        wlo, nw = subwindow_extent(wx.to(canvas.dtype))
+    # coverage count of every cell: +1/-1 at each rectangle's corners, then
+    # prefix sums (an empty rectangle's corners cancel)
     diff = torch.zeros((s, h + 1, w + 1), dtype=torch.int32,
-                       device=canvas.device)
-    sl, ys, xs = slab.long(), y0.long(), x0.long()
+                       device=slab.device)
+    sl, ys, xs = slab.long(), y0.long() + hlo, x0.long() + wlo
     one = torch.ones_like(sl, dtype=torch.int32)
-    for dy, dx, sign in ((0, 0, 1), (win, 0, -1), (0, win, -1),
-                         (win, win, 1)):
+    for dy, dx, sign in ((0, 0, 1), (nh, 0, -1), (0, nw, -1), (nh, nw, 1)):
         diff.index_put_((sl, ys + dy, xs + dx), one * sign, accumulate=True)
     covered = int((diff.cumsum(1).cumsum(2) > 0).sum().item())
     elem = canvas.element_size()
     bytes_moved = (covered * c * elem + 2 * r * p * win * 4 + 3 * r * 4
                    + r * p * p * c * elem)
-    flops = 2.0 * r * p * win * win * c + 2.0 * r * p * p * win * c
+    flops = 2.0 * p * c * float((nh * nw).sum() + p * nw.sum())
     return bound(bytes_moved, flops, canvas.dtype)
 
 
@@ -178,7 +260,22 @@ def _nms_problems(rng, problems, n, h, w):
     return torch.from_numpy(boxes), torch.from_numpy(valid)
 
 
+def _nms_edge_cases(rng):
+    """Three problems for each N and threshold: clustered boxes, N copies
+    of one box, and an all-invalid problem."""
+    for n in (1, 65, 1000, 1024, 4096, 8192):
+        boxes, valid = _nms_problems(rng, 3, n, 832, 1024)
+        boxes[1] = boxes[1, :1]
+        valid[1] = True
+        valid[2] = False
+        for thr in (0.0, 0.7, 1.0):
+            yield boxes, valid, thr
+
+
 def check_nms(dev):
+    """The main path's two calls and the edge cases against the plain
+    version (identical keep masks); the main path's calls are timed.
+    → (record, the timed calls' arguments)."""
     from uwcv_tpu_torch.ops.nms import nms_greedy, nms_greedy_reference
 
     rng = np.random.default_rng(2)
@@ -203,19 +300,86 @@ def check_nms(dev):
     log(f"  nms_greedy: {mismatches} keep-mask mismatches, {n_kept} kept")
     if mismatches:
         raise RuntimeError(f"nms_greedy disagrees in {mismatches} entries")
+    edge = 0
+    for boxes, valid, thr in _nms_edge_cases(rng):
+        boxes, valid = boxes.to(dev), valid.to(dev)
+        got = nms_greedy(boxes, valid, thr)
+        want = nms_greedy_reference(boxes, valid, thr)
+        bad = int((got != want).sum().item())
+        edge += 1
+        if bad:
+            raise RuntimeError(f"nms_greedy disagrees in {bad} entries at "
+                               f"N={boxes.shape[1]}, threshold {thr}")
+    log(f"  nms_greedy: {edge} edge cases (N 1..8192, thresholds 0/0.7/1, "
+        f"identical boxes, all-invalid) identical")
 
     run = lambda f: [f(bx, v, t) for bx, v, t in launches]
     ms = cuda_ms(lambda: run(nms_greedy))
-    plain_ms = cuda_ms(lambda: run(nms_greedy_reference), reps=20, warmup=1)
+    plain_ms = cuda_ms(lambda: run(nms_greedy_reference), calls=3, groups=3,
+                       warmup=1)
     n_boxes = sum(bx.shape[0] * bx.shape[1] for bx, _, _ in launches)
     # 16 B box + 1 B valid read, 1 B keep written; ~13 f32 ops per IoU test
     b_ms, b_by = bound(n_boxes * 18, kept_pairs * 13.0, torch.float32)
-    log(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+    split = device_split(lambda: run(nms_greedy))
+    log(f"    both calls {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.6f} ms ({b_by}); the greedy walk's sequential dependency "
-        f"is not in this bound")
+        f"is not in this bound; device split {split}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": max_err,
-            "problems": [[bx.shape[0], bx.shape[1], t] for bx, _, t in launches]}
+            "device_split_ms": split,
+            "problems": [[bx.shape[0], bx.shape[1], t] for bx, _, t in launches]
+            }, launches
+
+
+# ---------------------------------------------------------------- against
+
+def time_wrappers(inputs: str, out: str) -> None:
+    """Time the kernel wrappers of the ``uwcv_tpu_torch`` first on
+    ``sys.path`` on the inputs saved at ``inputs``; save {name: (ms, the
+    outputs on the host)} at ``out``."""
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
+
+    saved = torch.load(inputs, map_location="cuda")
+    calls = {f"roi_align_windows P={p}": (roi_align_windows, [a])
+             for p, a in sorted(saved["roi"].items())}
+    calls["nms_greedy (both calls)"] = (nms_greedy, saved["nms"])
+    result = {}
+    for name, (fn, arg_list) in calls.items():
+        run = lambda: [fn(*a) for a in arg_list]
+        result[name] = (cuda_ms(run), [o.cpu() for o in run()])
+    torch.save(result, out)
+
+
+def compare_against(root: str, roi_args, nms_calls) -> dict:
+    """The kernel wrappers of the package under ``root`` against these on
+    the same inputs, each side in its own process, in turns (root, this,
+    this, root).  → {name: times}; raises when the outputs disagree."""
+    work = os.path.join(REPO, "build", "against")
+    os.makedirs(work, exist_ok=True)
+    inputs = os.path.join(work, "inputs.pt")
+    torch.save({"roi": roi_args, "nms": nms_calls}, inputs)
+    turns = []
+    for i, pkg in enumerate((root, REPO, REPO, root)):
+        out = os.path.join(work, f"turn{i}.pt")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--time-wrappers", os.path.abspath(pkg), inputs, out],
+                       check=True)
+        turns.append(torch.load(out))
+    result = {}
+    for name, (_, theirs) in turns[0].items():
+        for a, b in zip(theirs, turns[1][name][1]):
+            ok = torch.equal(a, b) if a.dtype == torch.bool else (
+                (a.float() - b.float()).abs().max()
+                <= 2e-2 * a.float().abs().max())
+            if not ok:
+                raise RuntimeError(f"{name}: {root} and this disagree")
+        t = [turn[name][0] for turn in turns]
+        result[name] = {"against_ms": (t[0] + t[3]) / 2,
+                        "ms": (t[1] + t[2]) / 2, "turns_ms": t}
+        log(f"  {name}: {root} {t[0]:.4f}/{t[3]:.4f} ms, this "
+            f"{t[1]:.4f}/{t[2]:.4f} ms (turns: {root}, this, this, {root})")
+    return result
 
 
 # ---------------------------------------------------------------- golden
@@ -372,10 +536,22 @@ def run_full_width(dev):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="also time the kernel wrappers of the "
+                         "uwcv_tpu_torch package under DIR against these")
+    # the child process of --against: PKG INPUTS OUT
+    ap.add_argument("--time-wrappers", nargs=3, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.time_wrappers:
+        pkg, inputs, out = args.time_wrappers
+        sys.path.insert(0, pkg)
+        time_wrappers(inputs, out)
+        return 0
     sys.path.insert(0, REPO)
     from uwcv_tpu_torch import kernels
 
@@ -398,14 +574,19 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("[kernels] against their plain versions")
-    roi_timed, roi_cases = check_roi_align(dev)
-    nms_rec = check_nms(dev)
+    roi_timed, roi_cases, roi_args = check_roi_align(dev)
+    nms_rec, nms_calls = check_nms(dev)
 
     log("[golden] gate checkpoint vs committed JAX outputs")
     check_gate_golden(dev)
 
     log("[full width] main path")
     launches = run_full_width(dev)
+
+    against = {}
+    if args.against:
+        log(f"[against] kernel wrappers of {args.against} against these")
+        against = compare_against(args.against, roi_args, nms_calls)
 
     records = [
         {"name": "roi_align_windows", "route": "cuda",
@@ -426,6 +607,10 @@ def main() -> int:
          "bound_by": nms_rec["bound_by"], "library_ms": None,
          "problems": nms_rec["problems"]},
     ]
+    if against:
+        records[0]["against"] = {k: v for k, v in against.items()
+                                 if k.startswith("roi_align")}
+        records[1]["against"] = against["nms_greedy (both calls)"]
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,3 +127,20 @@ def test_chip_smoke_alone_fails_without_output(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    """A kernel's build path changes when its source or any shared
+    ``csrc/*.cuh`` header changes, so a stale library is never loaded."""
+    from uwcv_tpu_torch import kernels
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(tmp_path))
+    first = kernels._lib_path("k")
+    assert kernels._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = kernels._lib_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edit\n')
+    assert kernels._lib_path("k") not in (first, second)

@@ -39,7 +39,14 @@ from uwcv_tpu_torch.ops.nms import (
     nms_mask,
     nms_mask_batched,
 )
-from uwcv_tpu_torch.ops.roi_align import multilevel_roi_align_batched
+from uwcv_tpu_torch.ops.roi_align import (
+    level_canvas,
+    level_strides,
+    multilevel_roi_align_batched,
+    roi_align_windows_reference,
+    subwindow_extent,
+    window_geometry,
+)
 from uwcv_tpu_torch.structures import boxes as t_boxes
 from uwcv_tpu_torch.utils.image import device_resize, host_resize
 
@@ -134,7 +141,197 @@ def test_batched_class_nms_matches_jax():
         np.testing.assert_array_equal(got[i], want)
 
 
+def _nms_bitmatrix_scan(boxes, valid, thr):
+    """numpy mirror of csrc/nms.cu: words [N, ceil(N/64)] of IoU(i, j) > thr
+    bits for j > i (f32, the kernel's operation order), then the scan that
+    walks each 64-box block from ~valid, keeps the lowest undecided box and
+    ORs its row into the block's word and, once the block is decided, into
+    every later word."""
+    n = len(boxes)
+    words = -(-n // 64)
+    b = boxes.astype(np.float32)
+    zero = np.float32(0)
+    area = (np.maximum(b[:, 2] - b[:, 0], zero)
+            * np.maximum(b[:, 3] - b[:, 1], zero))
+    iw = np.maximum(np.minimum(b[:, None, 2], b[None, :, 2])
+                    - np.maximum(b[:, None, 0], b[None, :, 0]), zero)
+    ih = np.maximum(np.minimum(b[:, None, 3], b[None, :, 3])
+                    - np.maximum(b[:, None, 1], b[None, :, 1]), zero)
+    inter = iw * ih
+    uni = (area[:, None] + area[None, :]) - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        iou = np.where(uni > 0, inter / np.maximum(uni, np.float32(1e-12)),
+                       zero)
+    over = np.zeros((n, words * 64), bool)
+    over[:, :n] = (iou > np.float32(thr)) & np.triu(np.ones((n, n), bool), 1)
+    pow2 = np.uint64(1) << np.arange(64, dtype=np.uint64)
+    mask = (over.reshape(n, words, 64) * pow2).sum(-1, dtype=np.uint64)
+    vpad = np.zeros(words * 64, bool)
+    vpad[:n] = valid
+    removed = [int((~vpad[64 * k:64 * k + 64] * pow2).sum(dtype=np.uint64))
+               for k in range(words)]
+    keep = np.zeros(n, bool)
+    for k in range(words):
+        cur = removed[k]
+        in_range = (1 << min(64, n - 64 * k)) - 1
+        todo = ~cur & in_range
+        while todo:
+            bit = (todo & -todo).bit_length() - 1
+            d = int(mask[64 * k + bit, k])
+            cur |= d
+            todo &= todo - 1
+            todo &= ~d
+        kept = [bit for bit in range(64) if (~cur & in_range) >> bit & 1]
+        keep[[64 * k + bit for bit in kept]] = True
+        for w in range(k + 1, words):
+            for bit in kept:
+                removed[w] |= int(mask[64 * k + bit, w])
+    return keep
+
+
+def _nms_case(kind, n):
+    rng = np.random.default_rng(n)
+    if kind == "chain":           # each box overlaps only its neighbours
+        x = np.arange(n, dtype=np.float32) * 6
+        boxes = np.stack([x, 0 * x, x + 10, 0 * x + 10], 1)
+        return boxes, np.ones(n, bool)
+    # clusters around a few objects, score-sorted order, NEG_INF padding
+    ctr = rng.uniform(0, 300, (8, 2))[rng.integers(0, 8, n)]
+    ctr += rng.normal(0, 4, (n, 2))
+    size = rng.uniform(10, 60, (n, 2))
+    boxes = np.concatenate([ctr - size / 2, ctr + size / 2], 1)
+    valid = np.ones(n, bool)
+    if kind == "padded":
+        valid[n - n // 5:] = False
+        boxes[n - n // 5:] = 0.0
+    elif kind == "invalid":
+        valid[:] = False
+    return boxes.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("kind", ["padded", "chain", "invalid"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1000])
+def test_nms_bitmatrix_scan_mirror_matches(n, kind):
+    """The algorithm of the CUDA kernel (bit matrix + block scan), mirrored
+    in numpy, gives the keep masks of the plain version and of the Pallas
+    greedy kernel in interpret mode, at word and block edges."""
+    boxes, valid = _nms_case(kind, n)
+    for thr in (0.0, 0.5, 1.0):
+        got = _nms_bitmatrix_scan(boxes, valid, thr)
+        want = nms_greedy_reference(T(boxes)[None], T(valid)[None], thr)[0]
+        np.testing.assert_array_equal(got, want.numpy())
+        if n > 1:
+            pallas = np.asarray(nms_fixpoint_pallas(
+                jnp.asarray(boxes), jnp.asarray(valid), thr, interpret=True))
+            np.testing.assert_array_equal(got, pallas)
+        if kind == "chain" and thr == 0.0 and n >= 4:
+            assert list(got[:4]) == [True, False, True, False]
+
+
 # ------------------------------------------------------------ RoIAlign (B1)
+
+def _pool_subwindows(canvas, slab, y0, x0, wy, wx):
+    """``roi_align_windows_reference``'s arithmetic on each roi's nonzero
+    wy × wx extent only: the sub-window the CUDA kernel copies."""
+    dt = canvas.dtype
+    hlo, nh = subwindow_extent(wy.to(dt))
+    wlo, nw = subwindow_extent(wx.to(dt))
+    r, p, _ = wy.shape
+    out = canvas.new_zeros((r, p, p, canvas.shape[-1]))
+    for i in range(r):
+        h0, hn, w0, wn = int(hlo[i]), int(nh[i]), int(wlo[i]), int(nw[i])
+        ys, xs = int(y0[i]) + h0, int(x0[i]) + w0
+        patch = canvas[int(slab[i]), ys:ys + hn, xs:xs + wn]
+        rows = torch.einsum("ph,hwc->pwc", wy[i, :, h0:h0 + hn].to(dt), patch)
+        out[i] = torch.einsum("qw,pwc->pqc", wx[i, :, w0:w0 + wn].to(dt), rows)
+    return out, nh, nw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [7, 14])
+def test_roi_align_subwindow_matches_full_window(dtype, p):
+    """The kernel's premise: pooling each roi over its nonzero sub-window
+    only gives the full-window plain version (f32 within 1e-5·max|ref|;
+    bf16 within 2^-7·max|ref|: fewer terms in the sums, one rounding of
+    ``rows``).  Proposal-like rois, an image-wide 20:1 bar, zero boxes and
+    windows clamped at the canvas edges."""
+    rng = np.random.default_rng(p)
+    b, h, w, c = 2, 256, 320, 16
+    feats = {f"p{l}": T(rng.standard_normal((b, h >> l, w >> l, c),
+                                            dtype=np.float32)).to(dtype)
+             for l in range(2, 6)}
+    canvas, shapes = level_canvas(feats, 32)
+    side = np.exp(rng.uniform(np.log(8), np.log(300), (60, 2)))
+    ctr = rng.uniform(0, 1, (60, 2)) * [w, h]
+    rois = np.concatenate([ctr - side / 2, ctr + side / 2], -1)
+    rois[:, 0::2] = rois[:, 0::2].clip(0, w)
+    rois[:, 1::2] = rois[:, 1::2].clip(0, h)
+    rois[0] = [10, h / 2 - 7, w - 10, h / 2 + 7]       # ~20:1 bar
+    rois[1] = rois[2] = 0.0                            # invalid slots
+    rois[3] = [0, 0, 12, 9]                            # canvas corners
+    rois[4] = [w - 40, h - 30, w, h]
+    rois[5] = [w - 200, 0, w, 150]
+    rois = T(rois.astype(np.float32))
+    li, y0, x0, wy, wx = window_geometry(
+        rois, shapes, level_strides(STRIDES), p, 224.0, 4, 2, 32)
+    slab = (torch.arange(60) % b) * 5 + li
+    args = (canvas, slab, y0, x0, wy, wx)
+    want = roi_align_windows_reference(*args).float()
+    got, nh, nw = _pool_subwindows(*args)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert (got.float() - want).abs().max() <= tol * want.abs().max()
+    # the extents fit the kernel's 32×32 tile, and the edge windows touch
+    # the canvas border
+    assert int(nh.max()) <= 32 and int(nw.max()) <= 32 and int(nh.min()) > 0
+    assert int(y0[3]) == 0 and int(x0[3]) == 0
+    assert int(x0[4]) + 32 == shapes[int(li[4])][1]
+
+
+@pytest.mark.parametrize("whole", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chip_smoke_roi_bound_counts_covered_cells(dtype, whole):
+    """``chip_smoke._roi_bound`` reads each canvas cell that some roi's
+    sub-window (or whole window) covers once: its byte count equals a
+    cell-by-cell mask of those rectangles, and its operations are the two
+    contractions over them."""
+    import chip_smoke
+
+    rng = np.random.default_rng(11)
+    b, h, w, c, p, win = 2, 256, 320, 8, 7, 32
+    feats = {f"p{l}": T(np.zeros((b, h >> l, w >> l, c), np.float32))
+             .to(dtype) for l in range(2, 6)}
+    canvas, shapes = level_canvas(feats, win)
+    side = np.exp(rng.uniform(np.log(8), np.log(300), (40, 2)))
+    ctr = rng.uniform(0, 1, (40, 2)) * [w, h]
+    rois = np.concatenate([ctr - side / 2, ctr + side / 2], -1).clip(0, w)
+    rois[:, 1::2] = rois[:, 1::2].clip(0, h)
+    li, y0, x0, wy, wx = window_geometry(
+        T(rois.astype(np.float32)), shapes, level_strides(STRIDES), p,
+        224.0, 4, 2, win)
+    slab = (torch.arange(40) % b) * 5 + li
+    r = len(slab)
+    if whole:
+        hlo = wlo = torch.zeros(r, dtype=torch.int64)
+        nh = nw = torch.full((r,), win)
+    else:
+        hlo, nh = subwindow_extent(wy.to(dtype))
+        wlo, nw = subwindow_extent(wx.to(dtype))
+        assert int(nh.sum()) < r * win and int(nw.sum()) < r * win
+    mask = torch.zeros(canvas.shape[:3], dtype=torch.bool)
+    for i in range(r):
+        ys, xs = int(y0[i] + hlo[i]), int(x0[i] + wlo[i])
+        mask[int(slab[i]), ys:ys + int(nh[i]), xs:xs + int(nw[i])] = True
+    elem = canvas.element_size()
+    want_bytes = (int(mask.sum()) * c * elem + 2 * r * p * win * 4 + 3 * r * 4
+                  + r * p * p * c * elem)
+    want_flops = sum(2.0 * p * c * (int(nh[i]) * int(nw[i]) + p * int(nw[i]))
+                     for i in range(r))
+    got = chip_smoke._roi_bound(canvas, slab, y0, x0, wy, wx,
+                                whole_windows=whole)
+    want = chip_smoke.bound(want_bytes, want_flops, dtype)
+    assert got[1] == want[1]
+    assert got[0] == pytest.approx(want[0], rel=1e-12)
+
 
 @pytest.mark.parametrize("c,p", [(8, 7), (8, 14), (64, 7), (64, 14)])
 def test_roi_align_matches_pallas_interpret_and_xla(c, p):

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with ``ctypes``.  Libraries live under
 ``build/uwcv_tpu_torch/<hash>/`` next to the package, keyed by a hash of the
-sources and flags, so a fresh checkout builds them at first use and an edit
-rebuilds them.  No ``--use_fast_math``: the NMS kernel's IoU must round
-exactly as the plain PyTorch version does.
+source, of every shared header ``csrc/*.cuh`` and of the flags, so a fresh
+checkout builds them at first use and an edit of either rebuilds them.
+No ``--use_fast_math``: the NMS kernel's IoU must round exactly as the
+plain PyTorch version does.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on a machine without ``nvcc``.
@@ -15,6 +16,7 @@ on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -36,13 +38,14 @@ _F = ctypes.c_float
 # cudaError_t of its launch as an int)
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "roi_align": {
-        # canvas, slab, y0, x0, wy, wx, out, R, P, H, W, C, window, stream
-        "uwcv_roi_align_windows_f32": (_P,) * 7 + (_I,) * 6 + (_P,),
-        "uwcv_roi_align_windows_bf16": (_P,) * 7 + (_I,) * 6 + (_P,),
+        # canvas, slab, y0, x0, wy, wx, tasks and weights scratch, out,
+        # R, P, H, W, C, window, stream
+        "uwcv_roi_align_windows_f32": (_P,) * 9 + (_I,) * 6 + (_P,),
+        "uwcv_roi_align_windows_bf16": (_P,) * 9 + (_I,) * 6 + (_P,),
     },
     "nms": {
-        # boxes, valid, keep, P, N, threshold, stream
-        "uwcv_nms_greedy": (_P, _P, _P, _I, _I, _F, _P),
+        # boxes, valid, keep, mask scratch, P, N, threshold, stream
+        "uwcv_nms_greedy": (_P, _P, _P, _P, _I, _I, _F, _P),
     },
 }
 
@@ -61,10 +64,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    """Build path keyed by the source, every shared header and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for src in [os.path.join(CSRC_DIR, f"{name}.cu")] + headers:
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f"lib{name}.so")
 

@@ -1,10 +1,11 @@
 """Fixed-shape non-maximum suppression (port of ``uwcv_tpu/ops/nms.py``).
 
 NMS works on padded [N] box sets (invalid entries carry score NEG_INF) and
-returns a fixed-size keep *mask*.  The greedy walk itself is the CUDA kernel
+returns a fixed-size keep *mask*.  The greedy walk itself is the CUDA code
 ``csrc/nms.cu`` (the port of the Pallas kernel
-``uwcv_tpu/ops/pallas/nms_kernel.py``), launched once for a whole batch of
-problems through ``nms_mask_batched``.
+``uwcv_tpu/ops/pallas/nms_kernel.py``): one call, two kernels (suppression
+bits, then a scan), for a whole batch of problems through
+``nms_mask_batched``.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from uwcv_tpu_torch import kernels
 from uwcv_tpu_torch.structures.boxes import box_iou
 
 NEG_INF = -1e10
-# dynamic shared memory of one block: 21 B a box (box, area, keep flag)
+# the scan warp holds ceil(N/64) ≤ 128 words of `removed`, 4 a lane
 NMS_MAX_N = 8192
 
 
@@ -40,8 +41,9 @@ def nms_greedy(boxes_sorted: torch.Tensor, valid: torch.Tensor,
     """Greedy NMS over P independent problems of N score-sorted boxes:
     boxes_sorted [P,N,4] f32, valid [P,N] bool → keep [P,N] bool.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (one
-    block per problem) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels (a
+    suppression bit matrix over all SMs, then one warp scan per problem) or
+    raise."""
     if boxes_sorted.device.type == "cpu":
         return nms_greedy_reference(boxes_sorted, valid, iou_threshold)
     p, n = valid.shape
@@ -52,14 +54,21 @@ def nms_greedy(boxes_sorted: torch.Tensor, valid: torch.Tensor,
         raise ValueError("valid must be a bool tensor on the boxes' device")
     if n > NMS_MAX_N:
         raise ValueError(f"nms_greedy supports N <= {NMS_MAX_N}, got {n}")
+    if p > 65535:
+        raise ValueError(f"nms_greedy supports at most 65535 problems, got {p}")
     boxes_sorted = boxes_sorted.contiguous()
     valid = valid.contiguous()
     keep = torch.empty_like(valid)
     if p == 0 or n == 0:
         return keep
+    # suppression bits [P, N, ceil(N/64)]: word k of row i covers j in
+    # [64k, 64k+64); the scan reads only words at or right of the diagonal
+    mask = torch.empty((p, n, (n + 63) // 64), dtype=torch.int64,
+                       device=boxes_sorted.device)
     lib = kernels.library("nms")
     rc = lib.uwcv_nms_greedy(boxes_sorted.data_ptr(), valid.data_ptr(),
-                             keep.data_ptr(), p, n, float(iou_threshold),
+                             keep.data_ptr(), mask.data_ptr(), p, n,
+                             float(iou_threshold),
                              kernels.stream_ptr(boxes_sorted.device))
     kernels.check(rc, "nms_greedy")
     nms_greedy.launches += 1
@@ -88,7 +97,7 @@ def topk_stable(scores: torch.Tensor, k: int):
 
 def nms_mask_batched(boxes: torch.Tensor, scores: torch.Tensor,
                      iou_threshold: float) -> torch.Tensor:
-    """Exact greedy NMS over P padded problems in ONE kernel launch.
+    """Exact greedy NMS over P padded problems in ONE ``nms_greedy`` call.
 
     boxes [P,N,4], scores [P,N] (padding = NEG_INF scores) → keep [P,N]
     bool in the original order.  Greedy order = descending score, ties
@@ -117,7 +126,7 @@ def batched_class_nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
     batched_nms), for B images at once: boxes [B,N,4], scores [B,N],
     classes [B,N] → keep [B,N].  Each image's classes are shifted to
     disjoint regions by ``max|boxes| + 1`` of that image, so one pass never
-    crosses classes; all B problems share one kernel launch."""
+    crosses classes; all B problems share one ``nms_greedy`` call."""
     max_coord = boxes.abs().amax(dim=(1, 2)) + 1.0            # [B]
     offsets = classes.to(boxes.dtype)[..., None] * (max_coord[:, None, None]
                                                     * 2.0)

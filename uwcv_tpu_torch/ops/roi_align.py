@@ -27,7 +27,7 @@ import torch
 from uwcv_tpu_torch import kernels
 
 LEVEL_NAMES = ("p2", "p3", "p4", "p5")
-MAX_WINDOW = 64        # shared-memory weight rows of the kernel
+MAX_WINDOW = 32        # largest window side the kernel stages
 POOL_SIZES = (7, 14)   # output resolutions the kernel is instantiated for
 
 
@@ -168,13 +168,27 @@ def roi_align_windows_reference(canvas, slab, y0, x0, wy, wx,
     return out
 
 
+def subwindow_extent(w: torch.Tensor):
+    """First index and length of the nonzero extent of [R, P, win] weights
+    along ``win`` (the union over P): the rows (of ``wy``) or columns (of
+    ``wx``) of each window that the kernel copies.  Pass the weights in the
+    canvas dtype, as the kernel tests them.  → (lo [R], n [R]) int64; n = 0
+    and lo = 0 when every weight is zero."""
+    nz = (w != 0).any(dim=1)                                 # [R, win]
+    idx = torch.arange(w.shape[-1], device=w.device)
+    lo = torch.where(nz, idx, w.shape[-1]).amin(dim=1)
+    hi = torch.where(nz, idx, -1).amax(dim=1)
+    n = (hi - lo + 1).clamp_min(0)
+    return torch.where(n > 0, lo, 0), n
+
+
 def roi_align_windows(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
     """Fused windowed RoIAlign: canvas [S,Hmax,Wmax,C] f32|bf16, slab/y0/x0
     [R] int32, wy/wx [R,P,win] f32 → pooled [R,P,P,C] in the canvas dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).  Every window must lie inside the canvas, which
-    ``window_geometry`` guarantees."""
+    raise; the kernel needs C % 8 == 0 and win <= 32).  Every window must
+    lie inside the canvas, which ``window_geometry`` guarantees."""
     if canvas.device.type == "cpu":
         return roi_align_windows_reference(canvas, slab, y0, x0, wy, wx)
     if canvas.dtype not in (torch.float32, torch.bfloat16):
@@ -185,6 +199,9 @@ def roi_align_windows(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
     _, h, w, c = canvas.shape
     if p not in POOL_SIZES:
         raise ValueError(f"output size {p} not in {POOL_SIZES}")
+    if c % 8:
+        raise ValueError(f"the kernel copies 16-byte channel chunks: C={c} "
+                         f"is not a multiple of 8")
     if wx.shape != (r, p, win) or win > MAX_WINDOW or win > h or win > w:
         raise ValueError(f"bad window weights {tuple(wy.shape)} / "
                          f"{tuple(wx.shape)} for canvas {tuple(canvas.shape)}")
@@ -198,10 +215,18 @@ def roi_align_windows(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
     out = torch.empty((r, p, p, c), dtype=canvas.dtype, device=canvas.device)
     if r == 0:
         return out
+    if args[0].data_ptr() % 16:
+        raise ValueError("the canvas must start on a 16-byte boundary")
+    # per roi, written by the kernel: a 16-byte task (its sub-window) and
+    # its weights rounded to the canvas dtype, shifted to the sub-window
+    tasks = torch.empty((r, 4), dtype=torch.int32, device=canvas.device)
+    weights = torch.empty((r, 2, 16, 32), dtype=canvas.dtype,
+                          device=canvas.device)
     lib = kernels.library("roi_align")
     fn = (lib.uwcv_roi_align_windows_f32 if canvas.dtype == torch.float32
           else lib.uwcv_roi_align_windows_bf16)
-    rc = fn(*[t.data_ptr() for t in args], out.data_ptr(), r, p, h, w, c, win,
+    rc = fn(*[t.data_ptr() for t in args], tasks.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), r, p, h, w, c, win,
             kernels.stream_ptr(canvas.device))
     kernels.check(rc, "roi_align_windows")
     roi_align_windows.launches += 1
