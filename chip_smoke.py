@@ -20,14 +20,27 @@ Phases (any failure raises and exits non-zero):
    weights, a batch of 8 grayscale 1024×1280 images, 2 warm-up and 5 timed
    batches; the kernels' launch counts are zeroed just before and read just
    after, and must show both kernels on the path;
-5. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+5. folder: the same model through ``run_batch_inference`` over 16 seeded
+   1024×1280 16-bit TIFFs (written here), batch 8, measurements on; both
+   kernels twice a batch (counts zeroed just before), every RLE row decodes
+   to its instance's mask; img/s and the host-stage split;
+6. folder golden: the gate checkpoint in f32 over the committed gate PNGs
+   (``tests/data/gate_split``) through ``run_batch_inference`` against the
+   JAX package's committed CSVs (ImageIds equal, row mask IoU ≥ 0.99,
+   descriptor medians within 1%), and with ``paste_chunk=10`` bit-equal to
+   the unfused tail;
+7. eval: ``evaluate_split`` over that split, segm and bbox AP within 0.005
+   of the JAX package's committed values and segm AP ≥ 0.8 × the
+   checkpoint's recorded one;
+8. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
    ``nms_greedy``) of the ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
    against these on the timed inputs of phase 2: each side in its own
    process, in turns (DIR, this, this, DIR); their outputs must agree as
    in phase 2.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
+Scratch files go under ``build/chip_smoke/``.  Prints the card's name and
+power limit, the folder and eval records, a ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
 without one it exits non-zero and prints no result.
 """
@@ -35,8 +48,11 @@ without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -47,6 +63,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_gate_golden.npz")
 GATE_CKPT = os.path.join(REPO, "assets", "gate", "gate_ckpt.npz")
+GATE_META = os.path.join(REPO, "assets", "gate", "gate_meta.json")
+GATE_SPLIT = os.path.join(REPO, "tests", "data", "gate_split")
+WORK = os.path.join(REPO, "build", "chip_smoke")
 
 # H100 SXM data-sheet peaks (dense), for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -102,6 +121,21 @@ def bound(bytes_moved: float, flops: float, dtype) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def write_tiff16(path: str, px: np.ndarray) -> None:
+    """A [H, W] uint16 image as a one-strip uncompressed little-endian
+    16-bit grayscale TIFF (the SEM micrographs' format)."""
+    h, w = px.shape
+    data = px.astype("<u2").tobytes()
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 16), (259, 3, 1),
+               (262, 3, 1), (273, 4, 8), (277, 3, 1), (278, 4, h),
+               (279, 4, len(data))]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII" if typ == 4 else "<HHIHxx", tag, typ, 1, val)
+        for tag, typ, val in entries) + struct.pack("<I", 0)
+    with open(path, "wb") as f:
+        f.write(b"II*\x00" + struct.pack("<I", 8 + len(data)) + data + ifd)
 
 
 # ---------------------------------------------------------------- kernels
@@ -431,6 +465,233 @@ def check_gate_golden(dev):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ---------------------------------------------------------------- folder
+
+FOLDER_CSVS = ("R50_flip_.csv", "ShapeDescriptor.csv")
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def _read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def compare_folder_csvs(got_dir: str, want_dir: str, image_hw: dict) -> dict:
+    """The folder CSVs in ``got_dir`` against those in ``want_dir``: the
+    ImageId sequences and row counts equal, each RLE row's mask at IoU ≥
+    0.99 with the other's (``image_hw``: ImageId → (H, W)), and per class
+    equal descriptor row counts with each descriptor's median within 1%.
+    Raises on a violation; → {"rows", "worst_iou", "worst_median_rel",
+    "identical"}."""
+    from uwcv_tpu_torch.measure.rle import rle_decode
+
+    got = _read_csv(os.path.join(got_dir, FOLDER_CSVS[0]))
+    want = _read_csv(os.path.join(want_dir, FOLDER_CSVS[0]))
+    if [r[0] for r in got] != [r[0] for r in want]:
+        raise RuntimeError(f"RLE CSV: ImageId sequences differ "
+                           f"({len(got) - 1} vs {len(want) - 1} rows)")
+    worst_iou = 1.0
+    for g, w in zip(got[1:], want[1:]):
+        hw = image_hw[g[0]]
+        worst_iou = min(worst_iou, _mask_iou(rle_decode(g[1], hw),
+                                             rle_decode(w[1], hw)))
+    if worst_iou < 0.99:
+        raise RuntimeError(f"RLE CSV: worst row mask IoU {worst_iou} < 0.99")
+    got = _read_csv(os.path.join(got_dir, FOLDER_CSVS[1]))
+    want = _read_csv(os.path.join(want_dir, FOLDER_CSVS[1]))
+    if got[0] != want[0]:
+        raise RuntimeError("ShapeDescriptor.csv: headers differ")
+    worst_rel = 0.0
+    for cls in sorted({r[0] for r in got[1:] + want[1:]}):
+        a = np.asarray([r[1:] for r in got[1:] if r[0] == cls], np.float64)
+        b = np.asarray([r[1:] for r in want[1:] if r[0] == cls], np.float64)
+        if len(a) != len(b):
+            raise RuntimeError(f"ShapeDescriptor.csv: {cls!r} has {len(a)} "
+                               f"rows vs {len(b)}")
+        ma, mb = np.median(a, axis=0), np.median(b, axis=0)
+        rel = np.abs(ma - mb) / np.maximum(np.abs(mb), 1e-12)
+        worst_rel = max(worst_rel, float(rel.max()))
+    if worst_rel > 0.01:
+        raise RuntimeError(f"ShapeDescriptor.csv: a median differs by "
+                           f"{worst_rel:.4%} > 1%")
+    identical = all(_read_bytes(os.path.join(got_dir, n))
+                    == _read_bytes(os.path.join(want_dir, n))
+                    for n in FOLDER_CSVS)
+    return {"rows": len(_read_csv(os.path.join(got_dir, FOLDER_CSVS[0]))) - 1,
+            "worst_iou": worst_iou, "worst_median_rel": worst_rel,
+            "identical": identical}
+
+
+def check_rows_decode(result: dict) -> int:
+    """Every row of the run's RLE CSV decodes to its instance's mask, in
+    order.  → the number of rows."""
+    from uwcv_tpu_torch.measure.rle import rle_decode
+
+    rows = _read_csv(result["csv"])[1:]
+    k = 0
+    for path, inst in result["predictions"].items():
+        name = os.path.basename(path)
+        masks = inst.get("masks")
+        for m in ([] if masks is None else masks):
+            if not m.any():
+                continue
+            if k >= len(rows) or rows[k][0] != name or not np.array_equal(
+                    rle_decode(rows[k][1], m.shape), m):
+                raise RuntimeError(f"RLE CSV row {k} does not decode to "
+                                   f"instance mask of {name}")
+            k += 1
+    if k != len(rows):
+        raise RuntimeError(f"RLE CSV has {len(rows)} rows, {k} instances")
+    return k
+
+
+def _gate_folder_cfg(output_dir: str):
+    from uwcv_tpu_torch.config import Config
+
+    with open(os.path.join(GATE_SPLIT, "jax", "gate_config.json")) as f:
+        cfg = Config.from_dict(json.load(f))
+    cfg.data.classes_csv = os.path.join(GATE_SPLIT, "classes.csv")
+    cfg.output_dir = output_dir
+    return cfg
+
+
+def check_folder_golden(dev) -> dict:
+    """The gate checkpoint in f32 (TF32 off) over the committed gate PNGs
+    through ``run_batch_inference``, against the JAX package's committed
+    CSVs; then again with ``postprocess.paste_chunk = 10``, whose masks
+    must equal the unfused run's bit for bit."""
+    from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.weights import load_npz
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = load_npz(GATE_CKPT)
+    image_dir = os.path.join(GATE_SPLIT, "Test")
+    runs = {}
+    for chunk in (0, 10):
+        cfg = _gate_folder_cfg(os.path.join(WORK, f"gate_folder_{chunk}"))
+        cfg.postprocess.paste_chunk = chunk
+        pred = Predictor(cfg, params, device=dev)
+        runs[chunk] = run_batch_inference(cfg, pred, image_dir=image_dir,
+                                          progress=lambda *_: None)
+    image_hw = {os.path.basename(p): inst["masks"].shape[1:]
+                for p, inst in runs[0]["predictions"].items()}
+    record = compare_folder_csvs(os.path.dirname(runs[0]["csv"]),
+                                 os.path.join(GATE_SPLIT, "jax"), image_hw)
+    for path, inst in runs[0]["predictions"].items():
+        fused = runs[10]["predictions"][path]
+        if not (np.array_equal(inst["masks"], fused["masks"])
+                and np.array_equal(inst["classes"], fused["classes"])):
+            raise RuntimeError(f"paste_chunk=10 differs from the unfused "
+                               f"tail on {os.path.basename(path)}")
+    record["rows_decode"] = check_rows_decode(runs[0])
+    log(f"  folder golden: {len(image_hw)} PNGs, {record['rows']} RLE rows "
+        f"vs JAX: worst IoU {record['worst_iou']:.4f}, worst descriptor "
+        f"median {record['worst_median_rel']:.2e} rel, byte-identical "
+        f"{record['identical']}; paste_chunk=10 masks identical to unfused")
+    torch.backends.cudnn.allow_tf32 = True
+    return record
+
+
+def check_eval(dev) -> dict:
+    """``evaluate_split`` with the gate checkpoint (f32, TF32 off) over the
+    committed split: segm and bbox AP within 0.005 of the JAX package's
+    (same scanline rasterizer), segm AP ≥ 0.8 × the checkpoint's own."""
+    from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.eval.coco_eval import evaluate_split
+    from uwcv_tpu_torch.weights import load_npz
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _gate_folder_cfg(os.path.join(WORK, "gate_eval"))
+    pred = Predictor(cfg, load_npz(GATE_CKPT), device=dev)
+    dicts = get_superannotate_dicts(os.path.join(GATE_SPLIT, "Test"))
+    res = evaluate_split(cfg, dicts, predictor=pred)
+    with open(os.path.join(GATE_SPLIT, "jax", "gate_ap.json")) as f:
+        want = json.load(f)
+    with open(GATE_META) as f:
+        meta = json.load(f)
+    rec = {"segm_AP": res["segm"]["AP"], "bbox_AP": res["bbox"]["AP"],
+           "jax_segm_AP": want["segm_AP"], "jax_bbox_AP": want["bbox_AP"],
+           "images": len(dicts)}
+    log(f"  gate eval ({torch.device(dev)}): segm AP {rec['segm_AP']:.4f} (JAX "
+        f"{want['segm_AP']:.4f}), bbox AP {rec['bbox_AP']:.4f} (JAX "
+        f"{want['bbox_AP']:.4f}), {len(dicts)} images")
+    for kind in ("segm_AP", "bbox_AP"):
+        if abs(rec[kind] - want[kind]) > 0.005:
+            raise RuntimeError(f"gate {kind} {rec[kind]} vs JAX {want[kind]}")
+    if rec["segm_AP"] < 0.8 * meta["segm_AP"]:
+        raise RuntimeError(f"gate segm AP {rec['segm_AP']} < 0.8 × "
+                           f"{meta['segm_AP']}")
+    torch.backends.cudnn.allow_tf32 = True
+    return rec
+
+
+def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
+    """R50-FPN-256 bf16 with seeded weights over ``n_images`` seeded
+    1024×1280 16-bit TIFFs through ``run_batch_inference`` with the
+    measurements on.  Launch counts are zeroed just before and read just
+    after; host seconds per stage come from ``Predictor.stages``."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
+    from uwcv_tpu_torch.utils.device import HostStages
+
+    image_dir = os.path.join(WORK, "folder_tiff")
+    shutil.rmtree(image_dir, ignore_errors=True)
+    os.makedirs(image_dir)
+    rng = np.random.default_rng(5)
+    for i in range(n_images):
+        write_tiff16(os.path.join(image_dir, f"sem_{i:03d}.tif"),
+                     rng.integers(0, 65536, (1024, 1280), dtype=np.uint16))
+    cfg = Config()
+    cfg.model.roi_score_thresh_test = 0.0
+    cfg.output_dir = os.path.join(WORK, "folder_out")
+    pred = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
+    pred.stages = HostStages()
+    roi_align_windows.launches = 0
+    nms_greedy.launches = 0
+    t0 = time.perf_counter()
+    result = run_batch_inference(cfg, pred, image_dir=image_dir,
+                                 batch_size=batch, with_measurements=True,
+                                 with_plots=False, progress=lambda *_: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"roi_align_windows": roi_align_windows.launches,
+                "nms_greedy": nms_greedy.launches}
+    n_batches = -(-n_images // batch)
+    for name, n in launches.items():
+        if n != 2 * n_batches:
+            raise RuntimeError(f"folder phase: {name} launched {n} times, "
+                               f"expected 2 per batch × {n_batches}")
+    rows = check_rows_decode(result)
+    stages = {k: v * 1e3 for k, v in pred.stages.seconds.items()}
+    stage_sum = sum(stages.values())
+    counts = [int(len(i["scores"])) for i in result["predictions"].values()]
+    log(f"  folder full width: {n_images} × 1024×1280 16-bit TIFF, batch "
+        f"{batch}, measurements on: {n_images / wall:.3f} img/s "
+        f"({wall * 1e3:.1f} ms, host clock over the call); {rows} RLE rows "
+        f"decode to their masks; instances per image {counts}; launches "
+        f"{launches}")
+    log("  folder host stages (host clock, ms, summed over the call): "
+        + json.dumps({k: round(v, 1) for k, v in stages.items()}))
+    log(f"  folder stage sum {stage_sum:.1f} ms over {wall * 1e3:.1f} ms of "
+        f"wall: the pipeline hides {max(stage_sum - wall * 1e3, 0.0):.1f} ms")
+    if sum(counts) == 0:
+        raise RuntimeError("folder phase: no instance survived")
+    return {"img_per_s": n_images / wall, "wall_ms": wall * 1e3,
+            "stages_ms": stages, "stage_calls": dict(pred.stages.calls),
+            "rows": rows, "launches": launches}
+
+
 # ---------------------------------------------------------------- full width
 
 def seeded_flax_params(model_cfg, seed: int):
@@ -583,6 +844,15 @@ def main(argv=None) -> int:
     log("[full width] main path")
     launches = run_full_width(dev)
 
+    log("[folder] full width through run_batch_inference")
+    folder = run_folder_full_width(dev)
+
+    log("[folder golden] gate checkpoint over the gate PNGs vs the JAX CSVs")
+    folder_golden = check_folder_golden(dev)
+
+    log("[eval] gate split through evaluate_split")
+    gate_eval = check_eval(dev)
+
     against = {}
     if args.against:
         log(f"[against] kernel wrappers of {args.against} against these")
@@ -592,7 +862,11 @@ def main(argv=None) -> int:
         {"name": "roi_align_windows", "route": "cuda",
          "source": "uwcv_tpu_torch/csrc/roi_align.cu",
          "replaces": "uwcv_tpu/ops/pallas/roi_align_kernel.py:89",
-         "launches": launches["roi_align_windows"],
+         "launches": (launches["roi_align_windows"]
+                      + folder["launches"]["roi_align_windows"]),
+         "launches_by_phase": {
+             "full width": launches["roi_align_windows"],
+             "folder": folder["launches"]["roi_align_windows"]},
          "max_abs_err": roi_timed["max_abs_err"], "ms": roi_timed["ms"],
          "plain_ms": roi_timed["plain_ms"], "bound_ms": roi_timed["bound_ms"],
          "bound_by": roi_timed["bound_by"], "library_ms": None,
@@ -601,7 +875,9 @@ def main(argv=None) -> int:
         {"name": "nms_greedy", "route": "cuda",
          "source": "uwcv_tpu_torch/csrc/nms.cu",
          "replaces": "uwcv_tpu/ops/pallas/nms_kernel.py:64",
-         "launches": launches["nms_greedy"],
+         "launches": launches["nms_greedy"] + folder["launches"]["nms_greedy"],
+         "launches_by_phase": {"full width": launches["nms_greedy"],
+                               "folder": folder["launches"]["nms_greedy"]},
          "max_abs_err": nms_rec["max_abs_err"], "ms": nms_rec["ms"],
          "plain_ms": nms_rec["plain_ms"], "bound_ms": nms_rec["bound_ms"],
          "bound_by": nms_rec["bound_by"], "library_ms": None,
@@ -611,6 +887,8 @@ def main(argv=None) -> int:
         records[0]["against"] = {k: v for k, v in against.items()
                                  if k.startswith("roi_align")}
         records[1]["against"] = against["nms_greedy (both calls)"]
+    log(json.dumps({"folder": folder, "folder_golden": folder_golden,
+                    "eval": gate_eval}))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

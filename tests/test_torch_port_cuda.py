@@ -134,3 +134,62 @@ def test_chip_smoke_against_compares_two_packages(dev):
     for rec in got.values():
         assert len(rec["turns_ms"]) == 4
         assert all(t > 0 for t in rec["turns_ms"])
+
+
+@pytest.mark.parametrize("chunk", [1, 10, 17])
+def test_paste_select_pack_on_card_matches_unfused(dev, chunk):
+    """The fused mask tail on the card, bit for bit against the unfused
+    chain on the card (f32 paste)."""
+    from uwcv_tpu_torch.data.augment import pack_bitmasks
+    from uwcv_tpu_torch.ops.mask_paste import paste_masks, paste_select_pack
+    from uwcv_tpu_torch.ops.morphology import remove_overlaps
+
+    g = torch.Generator().manual_seed(chunk)
+    b, d, h, w = 2, 50, 416, 512
+    probs = torch.rand(b, d, 28, 28, generator=g).to(dev)
+    ctr = torch.rand(b, d, 2, generator=g) * torch.tensor([w, h])
+    wh = torch.rand(b, d, 2, generator=g) * 150 + 4
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).to(dev)
+    keep = (torch.rand(b, d, generator=g) > 0.2).to(dev)
+    scores = torch.rand(b, d, generator=g).to(dev)
+    extent = torch.zeros(b, h, w, dtype=torch.bool, device=dev)
+    extent[:, :400, :500] = True
+    got_p, got_k = paste_select_pack(probs, boxes, keep, scores, (h, w),
+                                     min_pixels=2, chunk=chunk,
+                                     extent=extent)
+    masks = paste_masks(probs, boxes, (h, w)) & extent[:, None]
+    order = torch.sort(-torch.where(keep, scores, torch.full_like(
+        scores, -float("inf"))), dim=-1, stable=True).indices
+    masks = remove_overlaps(masks, order)
+    want_k = keep & (masks.sum(dim=(2, 3)) >= 2)
+    torch.testing.assert_close(got_k, want_k, rtol=0, atol=0)
+    torch.testing.assert_close(got_p, pack_bitmasks(masks & want_k[..., None,
+                                                                   None]),
+                               rtol=0, atol=0)
+
+
+def test_start_pull_copies_into_pinned_memory(dev):
+    """The folder pipeline's device → host copy: pinned host buffers and an
+    event of their own, the same Instances as the synchronous pull."""
+    import numpy as np
+
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+
+    cfg = Config()
+    m = cfg.model
+    m.depth, m.fpn_channels, m.box_fc_dim, m.dtype = 26, 32, 32, "float32"
+    m.detections_per_image, m.roi_score_thresh_test = 10, 0.0
+    cfg.input.test_short_edge = cfg.input.test_max_size = 96
+    cfg.input.pad_size_test = (128, 128)
+    pred = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (120, 100, 3), dtype=np.uint8)
+              for _ in range(2)]
+    out = pred.predict_batch_device(images, block=False)
+    pulled = pred.start_pull(out)
+    assert pulled.masks.is_pinned() and pulled.ready is not None
+    for a, b in zip(pred.to_instances(pulled), pred.to_instances(out)):
+        np.testing.assert_array_equal(a.masks, b.masks)
+        np.testing.assert_array_equal(a.boxes, b.boxes)

@@ -1,9 +1,12 @@
 """Rules the port keeps: no JAX and nothing of ``uwcv_tpu`` in
-``uwcv_tpu_torch`` or ``chip_smoke.py``; entry points refuse to fall back
-to the CPU silently; the CPU path never launches (or counts) a kernel."""
+``uwcv_tpu_torch`` or ``chip_smoke.py``, and the folder path needs neither
+pandas, PIL nor matplotlib (the card's machine has none of them); entry
+points refuse to fall back to the CPU silently; the CPU path never launches
+(or counts) a kernel."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -14,6 +17,11 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "uwcv_tpu_torch")
 CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")
+GATE_SPLIT = os.path.join(REPO, "tests", "data", "gate_split")
+GATE_CKPT = os.path.join(REPO, "assets", "gate", "gate_ckpt.npz")
+# absent on the card's machine
+BLOCKED = ("jax", "jaxlib", "flax", "uwcv_tpu", "pandas", "PIL",
+           "matplotlib")
 
 
 def _port_sources():
@@ -34,11 +42,12 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_blocked():
-    """A fresh interpreter in which ``import jax`` (and flax, and the JAX
-    package) fails imports every module of the port and chip_smoke.py."""
+    """A fresh interpreter in which ``import jax`` (and flax, the JAX
+    package, pandas, PIL and matplotlib) fails imports every module of the
+    port and chip_smoke.py."""
     code = (
         "import sys, importlib\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'uwcv_tpu'):\n"
+        f"for m in {BLOCKED!r}:\n"
         "    sys.modules[m] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         f"for m in {list(_modules())!r}:\n"
@@ -77,23 +86,8 @@ def test_predictor_without_device_raises_without_cuda(monkeypatch):
         Predictor(Config())
 
 
-def test_unported_paste_tail_raises():
+def _tiny_cfg():
     from uwcv_tpu_torch.config import Config
-    from uwcv_tpu_torch.engine.predictor import Predictor
-
-    cfg = Config()
-    cfg.postprocess.paste_chunk = 10
-    with pytest.raises(NotImplementedError):
-        Predictor(cfg, device="cpu")
-
-
-def test_cpu_path_never_touches_launch_counters():
-    """A whole CPU batch through the predictor takes the plain versions and
-    leaves both kernel launch counters where they were."""
-    from uwcv_tpu_torch.config import Config
-    from uwcv_tpu_torch.engine.predictor import Predictor
-    from uwcv_tpu_torch.ops.nms import nms_greedy
-    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
 
     cfg = Config()
     m = cfg.model
@@ -102,6 +96,39 @@ def test_cpu_path_never_touches_launch_counters():
     m.detections_per_image, m.roi_score_thresh_test = 10, 0.0
     cfg.input.test_short_edge = cfg.input.test_max_size = 96
     cfg.input.pad_size_test = (128, 128)
+    return cfg
+
+
+def test_paste_chunk_gives_the_unfused_result_on_cpu():
+    """``postprocess.paste_chunk > 0`` selects the fused paste_select_pack
+    tail; a CPU batch through it equals the unfused tail's."""
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.engine.predictor import Predictor
+
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 256, (120, 100, 3), dtype=np.uint8)
+              for _ in range(2)]
+    out = {}
+    for chunk in (0, 3, 10):
+        cfg = _tiny_cfg()
+        cfg.postprocess.paste_chunk = chunk
+        params = seeded_flax_params(cfg.model, 0)   # confident, solid masks
+        out[chunk] = Predictor(cfg, params, device="cpu").predict_batch(images)
+    assert any(i.valid.any() for i in out[0])
+    for chunk in (3, 10):
+        for a, b in zip(out[0], out[chunk]):
+            np.testing.assert_array_equal(a.valid, b.valid)
+            np.testing.assert_array_equal(a.masks, b.masks)
+
+
+def test_cpu_path_never_touches_launch_counters():
+    """A whole CPU batch through the predictor takes the plain versions and
+    leaves both kernel launch counters where they were."""
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
+
+    cfg = _tiny_cfg()
     torch.manual_seed(0)
     pred = Predictor(cfg, device="cpu")
     before = (nms_greedy.launches, roi_align_windows.launches)
@@ -113,6 +140,50 @@ def test_cpu_path_never_touches_launch_counters():
         insts = pred.predict_batch(images)
         assert len(insts) == 2 and insts[0].masks.shape == (10, 128, 128)
     assert (nms_greedy.launches, roi_align_windows.launches) == before
+
+
+def test_folder_path_runs_without_pandas_pil_matplotlib(tmp_path):
+    """``run_batch_inference`` over three gate PNGs on the CPU in an
+    interpreter where pandas, PIL, matplotlib and JAX cannot be imported:
+    the RLE and descriptor CSVs are written, and asking for plots raises
+    an ImportError that names matplotlib."""
+    images = tmp_path / "images"
+    images.mkdir()
+    for name in sorted(os.listdir(os.path.join(GATE_SPLIT, "Test")))[:6]:
+        if name.endswith(".png"):
+            shutil.copy(os.path.join(GATE_SPLIT, "Test", name), images)
+    code = f"""
+import json, sys
+for m in {BLOCKED!r}:
+    sys.modules[m] = None
+sys.path.insert(0, {REPO!r})
+from uwcv_tpu_torch.config import Config
+from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
+from uwcv_tpu_torch.engine.predictor import Predictor
+from uwcv_tpu_torch.weights import load_npz
+cfg = Config.from_dict(json.load(open({GATE_SPLIT!r} + "/jax/gate_config.json")))
+cfg.data.classes_csv = {GATE_SPLIT!r} + "/classes.csv"
+cfg.output_dir = {str(tmp_path / "out")!r}
+pred = Predictor(cfg, load_npz({GATE_CKPT!r}), device="cpu")
+res = run_batch_inference(cfg, pred, image_dir={str(images)!r},
+                          progress=lambda *_: None)
+rows = open(res["csv"]).read().splitlines()
+print("rows", len(rows) - 1, res["num_images"])
+try:
+    run_batch_inference(cfg, pred, image_dir={str(images)!r}, with_plots=True,
+                        progress=lambda *_: None)
+except ImportError as e:
+    print("plots:", e)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    n_rows, n_images = map(int, lines[0].split()[1:])
+    assert n_images == 3 and n_rows > 0
+    assert "matplotlib" in lines[1]
+    for name in ("R50_flip_.csv", "ShapeDescriptor.csv", "ResultsPore_.csv"):
+        assert (tmp_path / "out" / name).exists()
 
 
 def test_chip_smoke_alone_fails_without_output(tmp_path):

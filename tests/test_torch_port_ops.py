@@ -31,7 +31,7 @@ from uwcv_tpu.utils.image import device_resize as j_device_resize
 from uwcv_tpu_torch.data.augment import pack_bitmasks
 from uwcv_tpu_torch.models.anchors import generate_anchors
 from uwcv_tpu_torch.ops import morphology as morph
-from uwcv_tpu_torch.ops.mask_paste import paste_masks
+from uwcv_tpu_torch.ops.mask_paste import paste_masks, paste_select_pack
 from uwcv_tpu_torch.ops.nms import (
     batched_class_nms_mask,
     nms_greedy,
@@ -496,6 +496,52 @@ def test_paste_and_pack_match_jax_bit_exact():
                                   np.asarray(j_pack(jnp.asarray(want))))
     np.testing.assert_array_equal(pack_bitmasks(T(got)).numpy(),
                                   np.packbits(want, axis=-1))
+
+
+@pytest.mark.parametrize("overlaps", [True, False])
+@pytest.mark.parametrize("chunk", [1, 10, 17])
+def test_paste_select_pack_matches_jax_and_unfused(chunk, overlaps):
+    """The fused tail on the fixture above, bit for bit against the JAX
+    ``paste_select_pack`` and against the port's unfused chain (paste →
+    extent → overlap claim → min-pixel filter → pack)."""
+    rng = np.random.default_rng(11)
+    d, m, h, w = 17, 28, 128, 160
+    probs = rng.uniform(0, 1, (d, m, m)).astype(np.float32)
+    x1 = rng.uniform(0, w - 30, d)
+    y1 = rng.uniform(0, h - 30, d)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(10, 60, d),
+                      y1 + rng.uniform(10, 60, d)], axis=1).astype(np.float32)
+    keep = rng.random(d) > 0.2
+    scores = rng.random(d).astype(np.float32)
+    extent = np.zeros((h, w), bool)
+    extent[:100, :140] = True
+    args = dict(min_pixels=40, do_remove_overlaps=overlaps, chunk=chunk)
+    want_p, want_k = j_paste.paste_select_pack(
+        jnp.asarray(probs), jnp.asarray(boxes), jnp.asarray(keep),
+        jnp.asarray(scores), (h, w), extent=jnp.asarray(extent), **args)
+    got_p, got_k = paste_select_pack(T(probs), T(boxes), T(keep), T(scores),
+                                     (h, w), extent=T(extent), **args)
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    masks = paste_masks(T(probs), T(boxes), (h, w)) & T(extent)
+    unfused_keep = T(keep)
+    if overlaps:
+        order = torch.sort(-torch.where(unfused_keep, T(scores), torch.tensor(
+            -np.inf)), stable=True).indices
+        masks = morph.remove_overlaps(masks, order)
+    unfused_keep = unfused_keep & (masks.sum(dim=(1, 2)) >= 40)
+    np.testing.assert_array_equal(
+        got_p.numpy(), pack_bitmasks(masks & unfused_keep[:, None, None]).numpy())
+    np.testing.assert_array_equal(got_k.numpy(), unfused_keep.numpy())
+    # a leading batch axis runs each image as on its own
+    got_b, keep_b = paste_select_pack(
+        T(np.stack([probs, probs[::-1].copy()])),
+        T(np.stack([boxes, boxes[::-1].copy()])),
+        T(np.stack([keep, keep[::-1].copy()])),
+        T(np.stack([scores, scores[::-1].copy()])), (h, w),
+        extent=T(np.stack([extent, extent])), **args)
+    np.testing.assert_array_equal(got_b[0].numpy(), got_p.numpy())
+    np.testing.assert_array_equal(keep_b[0].numpy(), got_k.numpy())
 
 
 # ----------------------------------------------------------------- resize

@@ -5,26 +5,31 @@ The host decodes, resizes (antialiased bilinear, no PIL) and pads a batch;
 the device runs the optional resample, Mask R-CNN inference, the head-
 resolution mask cleanup, the full-canvas paste, overlap claim, min-pixel
 filter and bit-pack; the host pulls the valid prefix and builds padded
-``Instances``.  Not ported yet: ``mesh`` (multi-GPU), ``from_exported``
-and the fused ``paste_select_pack`` tail (``postprocess.paste_chunk > 0``).
+``Instances``.  Not ported yet: ``mesh`` (multi-GPU) and ``from_exported``.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional, Sequence, Union
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from uwcv_tpu_torch.config import Config, model_fields_by_scope
 from uwcv_tpu_torch.data.augment import pack_bitmasks
+from uwcv_tpu_torch.data.loader import load_image_rgb
 from uwcv_tpu_torch.models.rcnn import MaskRCNN, compute_dtype
-from uwcv_tpu_torch.ops.mask_paste import paste_masks
+from uwcv_tpu_torch.ops.mask_paste import paste_masks, paste_select_pack
 from uwcv_tpu_torch.ops.morphology import clean_head_masks, remove_overlaps
 from uwcv_tpu_torch.structures.instances import Instances
-from uwcv_tpu_torch.utils.device import mark, resolve_device
+from uwcv_tpu_torch.utils.device import (
+    HostStages,
+    host_stage,
+    mark,
+    resolve_device,
+)
 from uwcv_tpu_torch.utils.image import (
     bucket_up,
     device_resize,
@@ -33,6 +38,19 @@ from uwcv_tpu_torch.utils.image import (
     shortest_edge_scale,
 )
 from uwcv_tpu_torch.weights import load_npz, params_from_flax
+
+
+class PulledBatch(NamedTuple):
+    """A batch's results on their way to the host: host tensors (pinned on
+    a GPU) that ``ready`` (a CUDA event, None on the CPU) completes."""
+    boxes: torch.Tensor
+    scores: torch.Tensor
+    classes: torch.Tensor
+    valid: torch.Tensor              # dets.valid & keep
+    masks: Optional[torch.Tensor]    # packed [B, D, H, W/8] uint8
+    scales: list
+    out_sizes: list
+    ready: Optional[torch.cuda.Event]
 
 
 class Predictor:
@@ -51,11 +69,8 @@ class Predictor:
             raise ValueError(
                 f"input.canvas_bucket must be a positive multiple of "
                 f"size_divisibility={cfg.input.size_divisibility}, got {bkt}")
-        if cfg.postprocess.paste_chunk > 0:
-            raise NotImplementedError(
-                "postprocess.paste_chunk > 0 selects the fused "
-                "paste_select_pack tail, which uwcv_tpu_torch does not port "
-                "yet; set paste_chunk=0")
+        # host seconds per stage, collected only when a caller sets it
+        self.stages: Optional[HostStages] = None
         self.device = resolve_device(device)
         self.model = MaskRCNN(cfg.model)
         if params is not None:
@@ -101,8 +116,19 @@ class Predictor:
             mask_probs, 0.5, do_fill_holes=pp.fill_holes,
             do_smooth=pp.smooth, drop_fragmented=pp.drop_fragmented)
         keep = dets.valid & single & (dets.scores >= pp.score_floor)
+        paste_dtype = getattr(torch, pp.paste_dtype)
+        if pp.paste_chunk > 0:
+            # the fused tail: one [B, chunk, H, W] transient at a time;
+            # bit-identical to the chain below
+            packed, keep = paste_select_pack(
+                cleaned.float(), dets.boxes, keep, dets.scores, (mch, mcw),
+                min_pixels=pp.min_mask_pixels,
+                do_remove_overlaps=pp.remove_overlaps, chunk=pp.paste_chunk,
+                dtype=paste_dtype, extent=inside)
+            mark(self.model.marks, "mask tail")
+            return dets, packed, keep
         masks = paste_masks(cleaned.float(), dets.boxes, (mch, mcw),
-                            dtype=getattr(torch, pp.paste_dtype))
+                            dtype=paste_dtype)
         # pasted pixels beyond the image's true extent are not content
         masks &= inside[:, None]
         if pp.remove_overlaps:
@@ -164,36 +190,74 @@ class Predictor:
         return ((put(batch), scales, put(out_sizes), (mch, mcw)),
                 ([p[2] for p in prepped], [p[3] for p in prepped]))
 
-    def predict_batch_device(self, images_rgb: Sequence[np.ndarray]):
-        """Run a batch, returning device-resident results:
-        (Detections, packed masks | None, keep, unmap scales, out sizes)."""
-        device_ops, unmap = self.stage_batch(images_rgb)
-        dets, masks_packed, keep = self._run(*device_ops)
+    def predict_batch_device(self, images_rgb: Sequence[np.ndarray],
+                             block: bool = True):
+        """Run a batch, returning device-resident results: (Detections,
+        packed masks | None, keep, unmap scales, out sizes).  Waits for the
+        device to finish unless ``block=False``, which lets a caller
+        pipeline batches (``start_pull`` then ``to_instances``)."""
+        with host_stage(self.stages, "stage_batch"):
+            device_ops, unmap = self.stage_batch(images_rgb)
+        with host_stage(self.stages, "_run"):
+            dets, masks_packed, keep = self._run(*device_ops)
+        if block and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         return dets, masks_packed, keep, unmap[0], unmap[1]
 
     def predict_batch(self, images_rgb: Sequence[np.ndarray]) -> List[Instances]:
         """Run a batch and pull results to host Instances; images may have
         arbitrary (per-image) sizes."""
-        return self.to_instances(self.predict_batch_device(images_rgb))
+        return self.to_instances(self.predict_batch_device(images_rgb,
+                                                           block=False))
 
-    def to_instances(self, device_out) -> List[Instances]:
-        """Pull a ``predict_batch_device`` result to host Instances: one
-        pull per field, and of the masks only the valid-slot prefix
-        (detection slots are score-sorted)."""
-        dets, masks_packed, keep, scales_list, out_sizes_list = device_out
-        boxes_np = dets.boxes.cpu().numpy()
-        scores_np = dets.scores.cpu().numpy()
-        classes_np = dets.classes.cpu().numpy().astype(np.int32)
-        valid_np = dets.valid.cpu().numpy() & keep.cpu().numpy()
+    def start_pull(self, device_out) -> PulledBatch:
+        """Enqueue the device → host copy of a ``predict_batch_device``
+        result into pinned host buffers and record an event for it.
+
+        A caller that enqueues batch i−1's copy before it dispatches batch
+        i waits, in ``to_instances``, for batch i−1 alone: a copy enqueued
+        after batch i would wait for all of batch i on the one stream.  The
+        whole packed stack is copied (the valid prefix is not known without
+        a sync); ``to_instances`` unpacks only the valid prefix."""
+        dets, masks_packed, keep, scales, out_sizes = device_out
+        fields = [dets.boxes, dets.scores, dets.classes, dets.valid & keep,
+                  masks_packed]
+        ready = None
+        if self.device.type == "cuda":
+            fields = [None if t is None else torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                    t, non_blocking=True) for t in fields]
+            ready = torch.cuda.Event()
+            ready.record()
+        mark(self.model.marks, "d2h")
+        return PulledBatch(*fields, scales, out_sizes, ready)
+
+    def to_instances(self, out) -> List[Instances]:
+        """Host Instances of a ``predict_batch_device`` result or of a
+        ``start_pull`` of one (then waiting for that copy only); of the
+        masks only the valid-slot prefix is unpacked (detection slots are
+        score-sorted)."""
+        if not isinstance(out, PulledBatch):
+            out = self.start_pull(out)
+        if out.ready is not None:
+            with host_stage(self.stages, "d2h wait"):
+                out.ready.synchronize()
+        with host_stage(self.stages, "to_instances"):
+            return self._instances(out)
+
+    def _instances(self, out: PulledBatch) -> List[Instances]:
+        boxes_np = out.boxes.numpy()
+        scores_np = out.scores.numpy()
+        classes_np = out.classes.numpy().astype(np.int32)
+        valid_np = out.valid.numpy()
         masks_np = None
-        if masks_packed is not None:
+        if out.masks is not None:
             nz = np.nonzero(valid_np)
             max_k = int(nz[1].max()) + 1 if len(nz[1]) else 1
-            masks_np = masks_packed[:, :max_k].cpu().numpy()
-        mark(self.model.marks, "d2h")
+            masks_np = out.masks[:, :max_k].numpy()
         results = []
-        for i, (scale, (oh, ow)) in enumerate(zip(scales_list,
-                                                  out_sizes_list)):
+        for i, (scale, (oh, ow)) in enumerate(zip(out.scales,
+                                                  out.out_sizes)):
             masks_i = None
             if masks_np is not None:
                 prefix = np.unpackbits(masks_np[i], axis=-1).astype(bool)
@@ -213,9 +277,11 @@ class Predictor:
                 valid=valid_np[i], masks=masks_i, image_size=(oh, ow)))
         return results
 
-    def __call__(self, image_rgb: np.ndarray) -> Instances:
-        """Single RGB image."""
-        return self.predict_batch([image_rgb])[0]
+    def __call__(self, image) -> Instances:
+        """Single image: an RGB ndarray or an image file's path."""
+        if isinstance(image, (str, os.PathLike)):
+            image = load_image_rgb(os.fspath(image))
+        return self.predict_batch([image])[0]
 
 
 def load_predictor(cfg: Config, weights: Optional[str] = None,
