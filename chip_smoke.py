@@ -12,7 +12,11 @@ Phases (any failure raises and exits non-zero):
    2e-2·max|ref|; NMS: identical keep masks), edge cases included; time
    both with CUDA events (``cuda_ms``), split a call's device time by
    kernel with ``torch.profiler`` (``device_split``), and time RoIAlign
-   once more with its rois in (slab, y0, x0) order;
+   once more with its rois in (slab, y0, x0) order; the RoIAlign backward
+   at the training shapes (canvas [10, 200, 200, 256], R = 64, P = 7 and
+   14; f32 at max err <= 1e-4·max|ref|, bf16 at <= 2e-2·max|ref|; rois at
+   the border, 64 copies of one roi, R = 0) and NMS at the training RPN's
+   10 × 2000;
 3. gate golden: the committed R26/FPN-64 gate checkpoint through
    ``Predictor.predict_batch`` in f32 (TF32 off) against the JAX package's
    outputs committed in ``tests/data/torch_port_gate_golden.npz``;
@@ -32,7 +36,21 @@ Phases (any failure raises and exits non-zero):
 7. eval: ``evaluate_split`` over that split, segm and bbox AP within 0.005
    of the JAX package's committed values and segm AP ≥ 0.8 × the
    checkpoint's recorded one;
-8. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+8. train golden: the gate checkpoint in f32 (TF32 off), 3 SGD steps
+   through ``Trainer.train_step`` on two gate images with augmentation off
+   and the sampler draws of ``tests/data/torch_port_train_golden.npz``;
+   each step's losses and the step-1 gradient norms within 1e-3 relative
+   of the JAX package's values committed there;
+9. train full width: ``Trainer.fit`` at the default config (R50-FPN-256,
+   bf16 compute, f32 masters, 800×800, batch 2) from seeded weights over
+   the 12 gate-split images staged on the device, 2 warm-up + 20 timed
+   steps at the default log period, then 20 more logging every step (a
+   host wait per step); launch counts zeroed just before and read just
+   after (RoIAlign and its backward twice a step, NMS once); finite logged
+   losses and weights; ``model_final.npz`` loads into ``Predictor``;
+   ms/step, img/s, a CUDA-event split (forward / backward / optimizer),
+   peak memory and the device's idle share;
+10. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
    ``nms_greedy``) of the ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
    against these on the timed inputs of phase 2: each side in its own
@@ -347,6 +365,21 @@ def check_nms(dev):
     log(f"  nms_greedy: {edge} edge cases (N 1..8192, thresholds 0/0.7/1, "
         f"identical boxes, all-invalid) identical")
 
+    tb, tv = _rpn_train_problems(rng)
+    tb, tv = tb.to(dev), tv.to(dev)
+    got, want = nms_greedy(tb, tv, 0.7), nms_greedy_reference(tb, tv, 0.7)
+    bad = int((got != want).sum().item())
+    if bad:
+        raise RuntimeError(f"nms_greedy disagrees in {bad} entries at the "
+                           f"training shape (10 × 2000)")
+    train = {"problems": [10, 2000, 0.7], "kept": int(want.sum().item()),
+             "ms": cuda_ms(lambda: nms_greedy(tb, tv, 0.7)),
+             "plain_ms": cuda_ms(lambda: nms_greedy_reference(tb, tv, 0.7),
+                                 calls=3, groups=3, warmup=1)}
+    log(f"  nms_greedy: training shape 10 × 2000 identical, "
+        f"{train['kept']} kept; {train['ms']:.4f} ms, plain "
+        f"{train['plain_ms']:.4f} ms")
+
     run = lambda f: [f(bx, v, t) for bx, v, t in launches]
     ms = cuda_ms(lambda: run(nms_greedy))
     plain_ms = cuda_ms(lambda: run(nms_greedy_reference), calls=3, groups=3,
@@ -360,9 +393,132 @@ def check_nms(dev):
         f"is not in this bound; device split {split}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "max_abs_err": max_err,
-            "device_split_ms": split,
+            "device_split_ms": split, "train": train,
             "problems": [[bx.shape[0], bx.shape[1], t] for bx, _, t in launches]
             }, launches
+
+
+def _roi_bwd_bound(g, slab, y0, x0, wy, wx, canvas_shape):
+    """Least time for one backward call: g, the weights and the window
+    origins read once and the canvas gradient written once (in g's dtype);
+    operations, the two contractions over each roi's sub-window.  Also the
+    floor of this design: g, each sub-window cell's atomic read and write
+    in f32, and the f32 scratch zeroed and (bf16) read for the cast.
+    → (bound ms, what bounds it, design floor ms)."""
+    from uwcv_tpu_torch.ops.roi_align import subwindow_extent
+
+    r, p, win = wy.shape
+    n_canvas = int(np.prod(canvas_shape))
+    c = canvas_shape[-1]
+    elem = g.element_size()
+    _, nh = subwindow_extent(wy.to(g.dtype))
+    _, nw = subwindow_extent(wx.to(g.dtype))
+    cells = float((nh * nw).sum())
+    g_bytes = r * p * p * c * elem
+    bytes_moved = g_bytes + 2 * r * p * win * 4 + 3 * r * 4 + n_canvas * elem
+    flops = 2.0 * p * c * float((p * nw + nh * nw).sum())
+    b_ms, b_by = bound(bytes_moved, flops, g.dtype)
+    # zeroing writes the scratch; the cast (not for f32) reads it and
+    # writes the canvas gradient
+    scratch = n_canvas * 4 + (0 if g.dtype == torch.float32
+                              else n_canvas * (4 + elem))
+    floor = (g_bytes + cells * c * 8 + scratch) / HBM_BYTES_PER_S * 1e3
+    return b_ms, b_by, floor
+
+
+def check_roi_align_backward(dev):
+    """The RoIAlign backward at the training shapes (B=2 at 800², canvas
+    [10, 200, 200, 256], R = 2·32 rois, P = 7 and 14) against its plain
+    version, in f32 (max error <= 1e-4·max|ref|: the atomics add in
+    another order) and bf16 (<= 2e-2·max|ref|: one rounding at the end
+    against the plain version's bf16 contractions and bf16 sums); edge
+    cases: rois at the canvas border, 64 copies of one roi, R = 0.  The
+    bf16 cases are timed.  → (the P=7 bf16 record, all cases)."""
+    from uwcv_tpu_torch.ops.roi_align import (
+        level_canvas,
+        level_strides,
+        roi_align_windows_backward,
+        roi_align_windows_backward_reference,
+        window_geometry,
+    )
+
+    rng = np.random.default_rng(6)
+    b, size, c, r_per = 2, 800, 256, 32
+    strides = {f"p{l}": 2 ** l for l in range(2, 6)}
+    feats = {f"p{l}": torch.zeros((b, size >> l, size >> l, c), device=dev)
+             for l in range(2, 6)}
+    shapes = level_canvas(feats, 32)[1]
+    canvas_shape = (5 * b, 200, 200, c)
+    border = torch.tensor([[0.0, 0.0, 40.0, 30.0], [760.0, 770.0, 800.0, 800.0],
+                           [0.0, 700.0, 800.0, 800.0], [790.0, 0.0, 800.0,
+                                                        800.0]])
+    cases, timed = [], None
+    for p in (7, 14):
+        rois = _proposal_like_rois(rng, b, r_per, size, size)
+        rois[:, 1:5] = border
+        same = rois[:1, 5:6].expand(b, r_per, 4)
+        for name, rr in (("proposal-like", rois), ("one roi ×64", same)):
+            li, y0, x0, wy, wx = window_geometry(
+                rr.reshape(-1, 4).to(dev), shapes, level_strides(strides), p,
+                224.0, 4, 2, 32)
+            slab = (torch.arange(b, device=dev).repeat_interleave(r_per) * 5
+                    + li).to(torch.int32)
+            full = (slab, y0.to(torch.int32), x0.to(torch.int32), wy, wx)
+            for dtype in (torch.float32, torch.bfloat16):
+                for r in ((b * r_per, 0) if name == "proposal-like"
+                          else (b * r_per,)):
+                    geo = tuple(t[:r] for t in full)
+                    g = torch.from_numpy(rng.standard_normal(
+                        (r, p, p, c), dtype=np.float32)).to(dev, dtype)
+                    got = roi_align_windows_backward(g, *geo, canvas_shape)
+                    want = roi_align_windows_backward_reference(
+                        g, *geo, canvas_shape)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    ref = want.float().abs().max().item()
+                    tol = 1e-4 if dtype == torch.float32 else 2e-2
+                    ok = (tuple(got.shape) == canvas_shape
+                          and got.dtype == dtype and err <= tol * ref)
+                    case = {"rois": name, "dtype": str(dtype).replace(
+                        "torch.", ""), "P": p, "R": r, "max_abs_err": err,
+                        "max_abs_ref": ref, "ok": ok}
+                    log(f"  roi_align_windows_backward {case}")
+                    if not ok:
+                        raise RuntimeError(
+                            f"roi_align_windows_backward disagrees: {case}")
+                    if (name == "proposal-like" and dtype == torch.bfloat16
+                            and r):
+                        args = (g,) + geo + (canvas_shape,)
+                        case["ms"] = cuda_ms(
+                            lambda: roi_align_windows_backward(*args))
+                        case["plain_ms"] = cuda_ms(
+                            lambda: roi_align_windows_backward_reference(
+                                *args), calls=5, groups=3)
+                        # the design floor is an estimate from the HBM
+                        # rate, logged beside the measured times only
+                        case["bound_ms"], case["bound_by"], floor = \
+                            _roi_bwd_bound(*args)
+                        case["device_split_ms"] = device_split(
+                            lambda: roi_align_windows_backward(*args))
+                        log(f"    kernel {case['ms']:.4f} ms, plain "
+                            f"{case['plain_ms']:.4f} ms, bound "
+                            f"{case['bound_ms']:.4f} ms ({case['bound_by']}), "
+                            f"design floor {floor:.4f} ms; "
+                            f"device split {case['device_split_ms']}")
+                        if p == 7:
+                            timed = case
+                    cases.append(case)
+    return timed, cases
+
+
+def _rpn_train_problems(rng):
+    """The training RPN's NMS call at 800², batch 2: 2 × 5 level problems
+    padded to N = 2000, with 2000, 2000, 2000, 1875 and 507 candidates."""
+    boxes, valid = _nms_problems(rng, 10, 2000, 800, 800)
+    valid[:] = False
+    for i, k in enumerate((2000, 2000, 2000, 1875, 507) * 2):
+        valid[i, :k] = True
+    return boxes, valid
 
 
 # ---------------------------------------------------------------- against
@@ -797,6 +953,211 @@ def run_full_width(dev):
     return launches
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_train_golden.npz")
+LOSS_KEYS = ("rpn_cls", "rpn_loc", "cls", "box_reg", "mask")
+TRAIN_WARMUP, TRAIN_TIMED = 2, 20     # full-width training steps
+
+
+def check_train_golden(dev, out_dir=None, loss_rtol: float = 1e-3,
+                       norm_rtol: float = 1e-3) -> dict:
+    """The gate checkpoint trained 3 SGD steps in f32 (TF32 off) on the
+    golden's two gate images with augmentation off and the golden's sampler
+    draws, through ``Trainer.train_step``: each step's losses within
+    ``loss_rtol`` of the JAX package's and the step-1 gradient norm of
+    every trainable leaf within ``norm_rtol`` (cuDNN's backward algorithms
+    and the atomics sum in other orders)."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
+    from uwcv_tpu_torch.weights import flax_leaf_names, load_npz
+
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(TRAIN_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    cfg = Config.from_dict(json.loads(str(g["config_json"])))
+    cfg.output_dir = out_dir or os.path.join(WORK, "train_golden")
+    trainer = Trainer(cfg, device=dev)
+    trainer.load_params(load_npz(GATE_CKPT))
+    put = lambda a: torch.from_numpy(a).to(dev)
+    batch = {k: put(g[k]) for k in ("image", "boxes", "classes", "valid",
+                                    "masks_packed")}
+    steps = sorted({int(k[4:].split("_")[0]) for k in g if k.startswith("step")})
+    worst_loss, worst_norm = 0.0, 0.0
+    for step in steps:
+        draws = {k: put(g[f"step{step}_{k}"])
+                 for k in ("rpn_pos", "rpn_neg", "roi_pos", "roi_neg")}
+        m = trainer.train_step(batch, step_generator(cfg.solver.seed, step,
+                                                     dev), sampler_draws=draws)
+        got = np.asarray([float(m[k]) for k in LOSS_KEYS + ("total_loss",)])
+        want = g[f"step{step}_losses"]
+        rel = np.abs(got - want) / np.abs(want)
+        worst_loss = max(worst_loss, float(rel.max()))
+        if not (rel <= loss_rtol).all():
+            raise RuntimeError(f"train golden step {step}: losses {got} vs "
+                               f"JAX {want}")
+        if step == 0:
+            names = flax_leaf_names(trainer.compute)
+            params = dict(trainer.compute.named_parameters())
+            norms = {k: float(params[names[k]].grad.float().norm())
+                     for k in g["grad_norm_keys"]}
+            for k, want_n in zip(g["grad_norm_keys"], g["grad_norms"]):
+                r = abs(norms[k] - want_n) / max(want_n, 1e-12)
+                worst_norm = max(worst_norm, r)
+                if r > norm_rtol:
+                    raise RuntimeError(f"train golden: |grad| of {k} "
+                                       f"{norms[k]} vs JAX {want_n}")
+    rec = {"steps": len(steps), "worst_loss_rel": worst_loss,
+           "worst_grad_norm_rel": worst_norm,
+           "leaves": int(len(g["grad_norm_keys"]))}
+    log(f"  train golden ({torch.device(dev)}): {rec['steps']} SGD steps, "
+        f"losses within {worst_loss:.2e} rel of JAX, {rec['leaves']} "
+        f"step-1 gradient norms within {worst_norm:.2e} rel")
+    if cuda:
+        torch.backends.cudnn.allow_tf32 = True
+    return rec
+
+
+def run_train_full_width(dev) -> dict:
+    """``Trainer.fit`` at the default config (R50-FPN-256, box FC 1024,
+    bf16 compute, f32 masters, 800×800, batch 2) from seeded weights over
+    the 12 annotated gate-split images staged on the device
+    (``TrainLoader.device_dataset``): ``TRAIN_WARMUP`` steps, then
+    ``TRAIN_TIMED`` timed steps at the default ``solver.log_period`` (the
+    host waits for the device at each logged step), then ``TRAIN_TIMED``
+    more logging every step, which shows what a wait per step costs.
+    Launch counts are zeroed just before and read just after; every
+    logged loss and every master weight must be finite (a non-finite loss
+    at an unlogged step reaches the weights through its gradient), and
+    ``model_final.npz`` must load into the port's ``Predictor``."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.data.classes import ClassRegistry
+    from uwcv_tpu_torch.data.loader import TrainLoader
+    from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
+    from uwcv_tpu_torch.engine.predictor import load_predictor
+    from uwcv_tpu_torch.engine.trainer import Trainer
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import (
+        roi_align_windows,
+        roi_align_windows_backward,
+    )
+
+    cfg = Config()
+    out = os.path.join(WORK, "train_full")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg.output_dir = out
+    cfg.solver.checkpoint_period = 0
+    registry = ClassRegistry.load(os.path.join(GATE_SPLIT, "classes.csv"))
+    dicts = get_superannotate_dicts(os.path.join(GATE_SPLIT, "Test"),
+                                    registry=registry)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=dev)
+    trainer.load_params(seeded_flax_params(cfg.model, 0))
+    loader = TrainLoader(dicts, cfg, seed=cfg.solver.seed)
+    dd = loader.device_dataset(trainer.device)
+    if dd is None:
+        raise RuntimeError("the gate split does not fit the device budget")
+    setup_s = time.perf_counter() - t0
+    batches = loader.index_batches()
+    lines = []
+    fit = lambda n: trainer.fit(batches, max_iter=trainer.step + n,
+                                log_fn=lines.append, device_dataset=dd)
+    torch.cuda.reset_peak_memory_stats()
+    roi_align_windows.launches = 0
+    roi_align_windows_backward.launches = 0
+    nms_greedy.launches = 0
+    fit(TRAIN_WARMUP)
+    trainer.marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(TRAIN_TIMED)
+    wall = time.perf_counter() - t0
+    marks, trainer.marks = trainer.marks, None
+    trainer.cfg.solver.log_period = 1
+    fit(TRAIN_TIMED)
+    launches = {"roi_align_windows": roi_align_windows.launches,
+                "roi_align_windows_backward":
+                    roi_align_windows_backward.launches,
+                "nms_greedy": nms_greedy.launches}
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = {m["iteration"]: m for m in map(json.loads, f)}
+    n_steps = TRAIN_WARMUP + 2 * TRAIN_TIMED
+    step_ms = metrics[TRAIN_WARMUP + TRAIN_TIMED]["time_per_iter"] * 1e3
+    synced_ms = metrics[n_steps]["time_per_iter"] * 1e3
+    split = {}
+    prev = None
+    for name, ev in marks:
+        if prev is not None and name != "start":
+            split[name] = (split.get(name, 0.0)
+                           + prev.elapsed_time(ev) / TRAIN_TIMED)
+        prev = ev
+    want = {"roi_align_windows": 2 * n_steps,
+            "roi_align_windows_backward": 2 * n_steps, "nms_greedy": n_steps}
+    log(f"  train full width R50-FPN-256 bf16 (f32 masters), batch 2 at "
+        f"800×800, {len(dicts)} images on the device: {step_ms:.1f} ms/step "
+        f"({2e3 / step_ms:.2f} img/s; host clock over {TRAIN_TIMED} steps "
+        f"after {TRAIN_WARMUP} warm-up at log period "
+        f"{cfg.solver.log_period}, Trainer's time_per_iter), wall "
+        f"{wall:.2f} s incl. the final checkpoint; logging every step "
+        f"(a host wait per step) {synced_ms:.1f} ms/step; setup "
+        f"{setup_s:.1f} s")
+    log("  train step split (CUDA events, ms/step): " + json.dumps(
+        {k: round(v, 3) for k, v in split.items()}))
+    log(f"  peak device memory {peak / 2**30:.2f} GiB; launches over "
+        f"{n_steps} steps: {launches}")
+    if launches != want:
+        raise RuntimeError(f"train launches {launches}, expected {want}")
+    logged = sorted(metrics)
+    losses = [metrics[i][k] for i in logged
+              for k in LOSS_KEYS + ("total_loss",)]
+    if logged[-1] != n_steps or not np.isfinite(losses).all():
+        raise RuntimeError(f"train: logged steps {logged}, losses finite "
+                           f"{np.isfinite(losses).all()}")
+    if not all(torch.isfinite(p).all() for p in trainer.model.parameters()):
+        raise RuntimeError("train: a master weight is not finite")
+    working = dict(trainer.compute.named_parameters())
+    for n, p in trainer.model.named_parameters():
+        if not torch.equal(working[n], p.to(working[n].dtype)):
+            raise RuntimeError(f"train: the working copy's {n} is not its "
+                               f"master rounded to {working[n].dtype}")
+    pcfg = Config()
+    pred = load_predictor(pcfg, os.path.join(out, "model_final.npz"),
+                          device=dev)
+    trained = dict(trainer.model.named_parameters())
+    for n, p in pred.model.named_parameters():
+        if not torch.equal(p.float(), trained[n].to(p.dtype).float()):
+            raise RuntimeError(f"model_final.npz: {n} differs from the "
+                               f"trained weights")
+    first, last = metrics[logged[0]], metrics[n_steps]
+    log(f"  model_final.npz loads into Predictor ({pcfg.model.dtype}); "
+        f"total loss at steps {logged[0]} / {n_steps}: "
+        f"{first['total_loss']:.4f} / {last['total_loss']:.4f}")
+    # the device's busy time in a step, by kernel (after the counts were
+    # read): busy against the step's host-clock time gives the idle share
+    idx = torch.arange(2, device=dev)
+    batch = {k: v.index_select(0, idx) for k, v in dd.items()}
+    gen = torch.Generator(device=dev)
+    by_kernel = device_split(lambda: trainer.train_step(batch, gen), calls=5)
+    busy = sum(by_kernel.values())
+    top = dict(list(by_kernel.items())[:8])
+    log(f"  device busy {busy:.2f} ms of a {step_ms:.1f} ms step (idle "
+        f"{1 - busy / step_ms:.1%}; {1 - busy / synced_ms:.1%} logging "
+        f"every step; torch.profiler over 5 steps); top kernels (ms/step): "
+        + json.dumps({k: round(v, 3) for k, v in top.items()}))
+    return {"ms_per_step": step_ms, "img_per_s": 2e3 / step_ms,
+            "ms_per_step_logging_every_step": synced_ms,
+            "split_ms": split, "peak_gib": peak / 2**30,
+            "launches": launches, "steps": n_steps,
+            "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+            "idle_share_logging_every_step": 1 - busy / synced_ms,
+            "top_kernels_ms": top,
+            "losses_first_last": [first["total_loss"], last["total_loss"]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -836,6 +1197,7 @@ def main(argv=None) -> int:
 
     log("[kernels] against their plain versions")
     roi_timed, roi_cases, roi_args = check_roi_align(dev)
+    bwd_timed, bwd_cases = check_roi_align_backward(dev)
     nms_rec, nms_calls = check_nms(dev)
 
     log("[golden] gate checkpoint vs committed JAX outputs")
@@ -853,6 +1215,12 @@ def main(argv=None) -> int:
     log("[eval] gate split through evaluate_split")
     gate_eval = check_eval(dev)
 
+    log("[train golden] gate checkpoint, 3 SGD steps vs committed JAX values")
+    train_golden = check_train_golden(dev)
+
+    log("[train] full width through Trainer.fit")
+    train = run_train_full_width(dev)
+
     against = {}
     if args.against:
         log(f"[against] kernel wrappers of {args.against} against these")
@@ -863,10 +1231,12 @@ def main(argv=None) -> int:
          "source": "uwcv_tpu_torch/csrc/roi_align.cu",
          "replaces": "uwcv_tpu/ops/pallas/roi_align_kernel.py:89",
          "launches": (launches["roi_align_windows"]
-                      + folder["launches"]["roi_align_windows"]),
+                      + folder["launches"]["roi_align_windows"]
+                      + train["launches"]["roi_align_windows"]),
          "launches_by_phase": {
              "full width": launches["roi_align_windows"],
-             "folder": folder["launches"]["roi_align_windows"]},
+             "folder": folder["launches"]["roi_align_windows"],
+             "train": train["launches"]["roi_align_windows"]},
          "max_abs_err": roi_timed["max_abs_err"], "ms": roi_timed["ms"],
          "plain_ms": roi_timed["plain_ms"], "bound_ms": roi_timed["bound_ms"],
          "bound_by": roi_timed["bound_by"], "library_ms": None,
@@ -875,20 +1245,34 @@ def main(argv=None) -> int:
         {"name": "nms_greedy", "route": "cuda",
          "source": "uwcv_tpu_torch/csrc/nms.cu",
          "replaces": "uwcv_tpu/ops/pallas/nms_kernel.py:64",
-         "launches": launches["nms_greedy"] + folder["launches"]["nms_greedy"],
+         "launches": (launches["nms_greedy"] + folder["launches"]["nms_greedy"]
+                      + train["launches"]["nms_greedy"]),
          "launches_by_phase": {"full width": launches["nms_greedy"],
-                               "folder": folder["launches"]["nms_greedy"]},
+                               "folder": folder["launches"]["nms_greedy"],
+                               "train": train["launches"]["nms_greedy"]},
          "max_abs_err": nms_rec["max_abs_err"], "ms": nms_rec["ms"],
          "plain_ms": nms_rec["plain_ms"], "bound_ms": nms_rec["bound_ms"],
          "bound_by": nms_rec["bound_by"], "library_ms": None,
-         "problems": nms_rec["problems"]},
+         "problems": nms_rec["problems"], "train": nms_rec["train"]},
+        {"name": "roi_align_windows_backward", "route": "cuda",
+         "source": "uwcv_tpu_torch/csrc/roi_align_bwd.cu",
+         "replaces": "uwcv_tpu/ops/roi_align.py:405",
+         "launches": train["launches"]["roi_align_windows_backward"],
+         "launches_by_phase": {
+             "train": train["launches"]["roi_align_windows_backward"]},
+         "max_abs_err": bwd_timed["max_abs_err"], "ms": bwd_timed["ms"],
+         "plain_ms": bwd_timed["plain_ms"], "bound_ms": bwd_timed["bound_ms"],
+         "bound_by": bwd_timed["bound_by"], "library_ms": None,
+         "shape": {k: bwd_timed[k] for k in ("dtype", "P", "R")},
+         "cases": bwd_cases},
     ]
     if against:
         records[0]["against"] = {k: v for k, v in against.items()
                                  if k.startswith("roi_align")}
         records[1]["against"] = against["nms_greedy (both calls)"]
     log(json.dumps({"folder": folder, "folder_golden": folder_golden,
-                    "eval": gate_eval}))
+                    "eval": gate_eval, "train_golden": train_golden,
+                    "train": train}))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,8 @@ from uwcv_tpu_torch.ops.roi_align import (
     level_canvas,
     level_strides,
     roi_align_windows,
+    roi_align_windows_backward,
+    roi_align_windows_backward_reference,
     roi_align_windows_reference,
     window_geometry,
 )
@@ -40,7 +42,8 @@ def _clustered(g, problems, n):
 
 
 @pytest.mark.parametrize("problems,n,thr", [(40, 1000, 0.7), (8, 1024, 0.5),
-                                            (3, 4096, 0.7), (2, 1, 0.5)])
+                                            (10, 2000, 0.7), (3, 4096, 0.7),
+                                            (2, 1, 0.5)])
 def test_nms_kernel_keep_masks_identical(dev, problems, n, thr):
     g = torch.Generator().manual_seed(n)
     boxes = _clustered(g, problems, n).to(dev)
@@ -108,6 +111,87 @@ def test_roi_align_kernel_matches_plain(dev, dtype, c, p, r):
     if r:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("r", [0, 1, 64, 2000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,p", [(64, 7), (256, 7), (256, 14), (12, 14)])
+def test_roi_align_backward_kernel_matches_plain(dev, dtype, c, p, r):
+    """The backward kernel against its plain version in f32 on the same
+    values: f32 max error <= 1e-4·max|ref| (the atomics add in another
+    order), bf16 <= 2e-2·max|ref| (weights rounded to bf16, one rounding at
+    the end; the bf16 plain version's own bf16 sums over 2000 overlapping
+    rois would dominate the comparison); C not a multiple of the
+    16-channel tile included."""
+    args = _pool_args(dev, dtype, c, p, r)
+    canvas_shape = tuple(args[0].shape)
+    g = torch.randn(r, p, p, c, generator=torch.Generator().manual_seed(r)
+                    ).to(dev, dtype)
+    got = roi_align_windows_backward(g, *args[1:], canvas_shape)
+    want = roi_align_windows_backward_reference(g.float(), *args[1:],
+                                                canvas_shape)
+    assert got.shape == canvas_shape and got.dtype == dtype
+    if r:
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        err = (got.float() - want.float()).abs().max()
+        assert err <= tol * want.float().abs().max()
+    else:
+        assert not got.any()
+
+
+def test_roi_align_backward_counts_launches_and_rejects_bad_input(dev):
+    args = _pool_args(dev, torch.bfloat16, 64, 7, 8)
+    shape = tuple(args[0].shape)
+    g = torch.ones(8, 7, 7, 64, dtype=torch.bfloat16, device=dev)
+    before = roi_align_windows_backward.launches
+    roi_align_windows_backward(g, *args[1:], shape)
+    assert roi_align_windows_backward.launches == before + 1
+    with pytest.raises(ValueError):
+        roi_align_windows_backward(g.half(), *args[1:], shape)
+    with pytest.raises(ValueError):
+        roi_align_windows_backward(g[:, :5, :5], *args[1:], shape)
+    with pytest.raises(ValueError):
+        roi_align_windows_backward(g, args[1].long(), *args[2:], shape)
+
+
+def test_training_steps_on_card_launch_every_kernel(dev, tmp_path):
+    """Two Trainer steps of a small bf16 model on the card: RoIAlign and its
+    backward twice a step, NMS once, finite losses."""
+    import numpy as np
+
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+
+    cfg = Config()
+    m = cfg.model
+    m.depth, m.fpn_channels, m.box_fc_dim = 26, 64, 64
+    cfg.input.train_size = (128, 128)
+    cfg.output_dir = str(tmp_path)
+    tr = Trainer(cfg, device=dev)
+    tr.load_params(seeded_flax_params(cfg.model, 0))
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((2, 8, 4), np.float32)
+    boxes[:, :3] = [[10, 10, 60, 50], [70, 20, 120, 90], [5, 80, 40, 125]]
+    masks = np.zeros((2, 8, 128, 128), bool)
+    for i, (x1, y1, x2, y2) in enumerate(boxes[0, :3].astype(int)):
+        masks[:, i, y1:y2, x1:x2] = True
+    batch = {"image": torch.from_numpy(rng.integers(0, 256, (2, 128, 128, 3),
+                                                    dtype=np.uint8)),
+             "boxes": torch.from_numpy(boxes),
+             "classes": torch.zeros(2, 8, dtype=torch.int32),
+             "valid": torch.from_numpy((boxes[..., 2] > 0)),
+             "masks_packed": torch.from_numpy(np.packbits(masks, axis=-1))}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    counts = (roi_align_windows.launches, roi_align_windows_backward.launches,
+              nms_greedy.launches)
+    for step in range(2):
+        metrics = tr.train_step(batch, step_generator(0, step, dev))
+        assert all(torch.isfinite(v) for v in metrics.values())
+    assert (roi_align_windows.launches - counts[0],
+            roi_align_windows_backward.launches - counts[1],
+            nms_greedy.launches - counts[2]) == (4, 4, 2)
 
 
 def test_roi_align_kernel_rejects_unaligned_channels(dev):

@@ -377,9 +377,10 @@ def test_cli_module_runs_as_a_script():
                           "--help"], capture_output=True, text=True,
                          timeout=120, cwd=REPO)
     assert out.returncode == 0
-    for verb in ("infer", "measure", "eval", "serve"):
+    for verb in ("train", "infer", "measure", "eval", "serve"):
         assert verb in out.stdout
-    assert "train" not in out.stdout
+    for verb in ("hpo", "export", "synth"):
+        assert verb not in out.stdout
 
 
 if __name__ == "__main__":

@@ -20,8 +20,8 @@ CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")
 GATE_SPLIT = os.path.join(REPO, "tests", "data", "gate_split")
 GATE_CKPT = os.path.join(REPO, "assets", "gate", "gate_ckpt.npz")
 # absent on the card's machine
-BLOCKED = ("jax", "jaxlib", "flax", "uwcv_tpu", "pandas", "PIL",
-           "matplotlib")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "uwcv_tpu", "pandas",
+           "PIL", "matplotlib")
 
 
 def _port_sources():
@@ -84,6 +84,54 @@ def test_predictor_without_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(Config())
+
+
+def test_trainer_and_train_verb_raise_without_cuda(monkeypatch, tmp_path):
+    """Without a card, ``Trainer`` and the ``train`` verb refuse the
+    default device instead of training on the CPU; ``device="cpu"`` is
+    accepted."""
+    from uwcv_tpu_torch.cli.main import main
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _tiny_cfg()
+    cfg.output_dir = str(tmp_path / "t")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    assert Trainer(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "--data-dir", os.path.join(GATE_SPLIT, "Test"),
+              "--output-dir", str(tmp_path / "cli")])
+    assert not (tmp_path / "cli" / "model_final.npz").exists()
+
+
+def test_cpu_training_launches_no_kernel(tmp_path):
+    """Two CPU training steps take the plain versions of RoIAlign, its
+    backward and NMS: every launch counter stays where it was."""
+    from uwcv_tpu_torch.data.loader import TrainLoader
+    from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
+    from uwcv_tpu_torch.engine.trainer import Trainer
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import (
+        roi_align_windows,
+        roi_align_windows_backward,
+    )
+
+    cfg = _tiny_cfg()
+    cfg.input.train_size = (64, 64)
+    cfg.model.rpn_pre_nms_topk_train, cfg.model.rpn_post_nms_topk_train = \
+        100, 50
+    cfg.output_dir = str(tmp_path)
+    counters = (roi_align_windows, roi_align_windows_backward, nms_greedy)
+    before = [f.launches for f in counters]
+    tr = Trainer(cfg, device="cpu")
+    loader = TrainLoader(get_superannotate_dicts(
+        os.path.join(GATE_SPLIT, "Test")), cfg)
+    tr.fit(loader.index_batches(), max_iter=2, log_fn=lambda *_: None,
+           device_dataset=loader.device_dataset("cpu"))
+    assert tr.step == 2
+    assert [f.launches for f in counters] == before
 
 
 def _tiny_cfg():

@@ -5,12 +5,13 @@ module names (``models/rcnn.py``, ``ops/roi_align.py``, ...) so each
 counterpart is easy to find.  It imports ``torch`` and never ``jax`` or
 anything from ``uwcv_tpu``.
 
-The two Pallas TPU kernels of the inference path are hand-written CUDA C++
-kernels here (``csrc/``), built with ``nvcc`` at first use
-(``uwcv_tpu_torch/kernels.py``): the fused windowed RoIAlign
-(``ops/roi_align.py::roi_align_windows``) and the greedy NMS
-(``ops/nms.py::nms_greedy``).  Each wrapper runs its plain PyTorch version
-only for CPU tensors; on a CUDA tensor it launches the kernel or raises.
+The two Pallas TPU kernels are hand-written CUDA C++ kernels here
+(``csrc/``), built with ``nvcc`` at first use (``uwcv_tpu_torch/kernels.py``):
+the fused windowed RoIAlign (``ops/roi_align.py::roi_align_windows``) and
+the greedy NMS (``ops/nms.py::nms_greedy``); so is RoIAlign's backward
+(``ops/roi_align.py::roi_align_windows_backward``), which training pools
+through.  Each wrapper runs its plain PyTorch version only for CPU
+tensors; on a CUDA tensor it launches the kernel or raises.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
-"""The port's CLI (port of ``uwcv_tpu/cli/main.py``): the folder verbs.
+"""The port's CLI (port of ``uwcv_tpu/cli/main.py``).
 
+    python -m uwcv_tpu_torch.cli.main train   — fine-tune on a SuperAnnotate split
     python -m uwcv_tpu_torch.cli.main infer   — folder inference → RLE CSV + measurements
     python -m uwcv_tpu_torch.cli.main measure — the same, with distribution plots
     python -m uwcv_tpu_torch.cli.main eval    — COCO mAP on a labelled split
@@ -8,7 +9,7 @@
 (``uwcv-torch`` once the package is installed.)  Every config knob is a
 dotted override, ``-o postprocess.paste_chunk=10``.  ``--device`` is
 ``cuda`` unless ``--device cpu`` is given; without a card ``cuda`` raises.
-``train``, ``hpo``, ``export`` and ``synth`` come with later slices.
+``hpo``, ``export`` and ``synth`` come with later slices.
 """
 
 from __future__ import annotations
@@ -65,6 +66,33 @@ def _load_dataset(cfg: Config, split: str, data_dir: Optional[str]):
     if name not in DatasetCatalog.list():
         register_superannotate(name, root, classes_csv=cfg.data.classes_csv)
     return DatasetCatalog.get(name)
+
+
+def cmd_train(args) -> int:
+    cfg = _build_cfg(args)
+    from uwcv_tpu_torch.data.loader import TrainLoader
+    from uwcv_tpu_torch.engine.trainer import Trainer
+
+    trainer = Trainer(cfg, device=args.device)      # raises before any work
+    dicts = _load_dataset(cfg, "Train", args.data_dir)
+    print(f"train dataset: {len(dicts)} images, output: {cfg.output_dir}")
+    trainer.resume_or_load(resume=args.resume)
+    loader = TrainLoader(dicts, cfg, seed=cfg.solver.seed)
+    # a resumed run picks the index stream up where the checkpoint left it
+    loader.skip(trainer.step)
+    dd = loader.device_dataset(trainer.device)
+    if dd is not None:
+        # a fine-tune-sized dataset on the device: a step ships its [B]
+        # index vector only
+        trainer.fit(loader.index_batches(), device_dataset=dd)
+    else:
+        loader.start()
+        try:
+            trainer.fit(iter(loader))
+        finally:
+            loader.stop()
+    print(f"done: {os.path.join(cfg.output_dir, 'model_final.npz')}")
+    return 0
 
 
 def cmd_infer(args) -> int:
@@ -130,8 +158,15 @@ def cmd_serve(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="uwcv-torch",
-        description="uwcv folder inference on an NVIDIA GPU (PyTorch/CUDA)")
+        description="uwcv fine-tuning and folder inference on an NVIDIA GPU "
+                    "(PyTorch/CUDA)")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="fine-tune Mask R-CNN")
+    _add_common(p)
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("infer", help="batch inference over a folder")
     _add_common(p)

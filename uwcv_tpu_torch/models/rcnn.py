@@ -4,7 +4,12 @@
 ``Detections`` and the predicted class's 28×28 mask probabilities, through
 backbone, FPN, RPN, the box pooler (RoIAlign kernel), the box head, batched
 NMS (NMS kernel), the mask pooler (RoIAlign kernel) and the mask head.
-``forward_train`` belongs to the training slice and is not ported yet.
+
+``MaskRCNN.forward_train``: the joint RPN + ROI losses of a training batch,
+with in-graph label assignment and balanced sampling; the poolers go
+through the RoIAlign kernel and its backward, the RPN's proposal selection
+through the NMS kernel.  Its random draws come from a ``torch.Generator``
+through ``sampler_draws``, or from the caller.
 """
 
 from __future__ import annotations
@@ -20,7 +25,14 @@ from uwcv_tpu_torch.models.fpn import FPN
 from uwcv_tpu_torch.models.heads import BoxHead, MaskHead, inference_detections
 from uwcv_tpu_torch.models.resnet import ResNet
 from uwcv_tpu_torch.models.rpn import LEVELS, RPNHead, generate_proposals
+from uwcv_tpu_torch.ops.mask_paste import crop_and_resize_masks
+from uwcv_tpu_torch.ops.matcher import (
+    match_boxes,
+    sampler_uniforms,
+    subsample_labels,
+)
 from uwcv_tpu_torch.ops.roi_align import level_canvas, pool_level_canvas
+from uwcv_tpu_torch.structures.boxes import encode_deltas
 from uwcv_tpu_torch.utils.device import mark
 
 STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64}
@@ -41,10 +53,44 @@ def _rgb_to_model_format(images: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return (images - mean) / std
 
 
+def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid BCE, max(x,0) - x·z + log1p(exp(-|x|))
+    (``optax_sigmoid_ce``, rcnn.py:345)."""
+    return (logits.clamp_min(0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
+
+
+def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row softmax cross-entropy (rcnn.py:351)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, 1, labels[:, None])[:, 0]
+
+
+def sampler_draws(cfg: ModelConfig, b: int, n_anchors: int, n_cands: int,
+                  generator: Optional[torch.Generator], device
+                  ) -> Dict[str, torch.Tensor]:
+    """The uniforms ``forward_train``'s two samplers consume: per image,
+    the RPN's over its anchors and the ROI head's over its candidates
+    (proposals, then gt).  The positive draws are floored for the weighted
+    draw where the config sets class weights."""
+    d = {}
+    d["rpn_pos"], d["rpn_neg"] = sampler_uniforms(
+        (b, n_anchors), bool(cfg.rpn_fg_class_weights), generator, device)
+    d["roi_pos"], d["roi_neg"] = sampler_uniforms(
+        (b, n_cands), bool(cfg.roi_fg_class_weights), generator, device)
+    return d
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, N, ...] gathered along dim 1 by idx [B, K] → [B, K, ...]."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
 class MaskRCNN(nn.Module):
-    """Mask R-CNN whose parameters and buffers are held in the compute dtype
-    (``cfg.dtype``) — the Flax modules keep f32 params and cast them to the
-    compute dtype at use, which rounds identically."""
+    """Mask R-CNN.  The predictor holds its parameters and buffers in the
+    compute dtype (``cfg.dtype``) — the Flax modules keep f32 params and
+    cast them to the compute dtype at use, which rounds identically; the
+    trainer keeps f32 masters and a compute-dtype working copy."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -130,3 +176,120 @@ class MaskRCNN(nn.Module):
             mask_probs = torch.sigmoid(torch.gather(mlogits, 4, sel)[..., 0])
             mark(self.marks, "mask pooler+head")
         return dets, mask_probs
+
+    def forward_train(self, images: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_classes: torch.Tensor, gt_masks: torch.Tensor,
+                      gt_valid: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Training forward → loss dict (port of rcnn.py:161-325).
+
+        images [B,H,W,3] RGB float; gt_boxes [B,N,4]; gt_classes [B,N];
+        gt_masks [B,N,H,W] bool; gt_valid [B,N].  Losses follow Detectron2:
+        rpn_cls (BCE), rpn_loc (L1), cls (softmax CE incl. background),
+        box_reg (L1, fg only), mask (BCE on the matched class's channel).
+        ``draws`` (``sampler_draws``) are the samplers' uniforms; without
+        them they are drawn from ``generator``."""
+        c = self.cfg
+        b, h, w, _ = images.shape
+        dev = images.device
+        feats = self.features(images)
+        obj, deltas = self.rpn_head(feats)
+        anchors = self._anchors((h, w), dev)
+        anchors_cat = torch.cat([anchors[n] for n in LEVELS])      # [A,4]
+        proposals = generate_proposals(obj, deltas, anchors, (h, w), c,
+                                       training=True)
+        obj_cat = torch.cat([obj[n].reshape(b, -1) for n in LEVELS], 1)
+        deltas_cat = torch.cat([deltas[n].reshape(b, -1, 4) for n in LEVELS],
+                               1)
+        cand_boxes = torch.cat([proposals.boxes, gt_boxes.float()], 1)
+        cand_valid = torch.cat([proposals.valid, gt_valid], 1)
+        if draws is None:
+            draws = sampler_draws(c, b, anchors_cat.shape[0],
+                                  cand_boxes.shape[1], generator, dev)
+        classes = gt_classes.long()
+        wtab = lambda ws: torch.tensor(ws, dtype=torch.float32, device=dev)
+        class_of = lambda idx: _take(classes, idx).clamp(0, c.num_classes - 1)
+
+        # --- RPN losses (per image, then the batch mean) ---
+        m = match_boxes(anchors_cat, gt_boxes, gt_valid, c.rpn_fg_iou_thresh,
+                        c.rpn_bg_iou_thresh, allow_low_quality=True)
+        rpn_w = (wtab(c.rpn_fg_class_weights)[class_of(m.matched_idx)]
+                 if c.rpn_fg_class_weights else None)
+        idx, is_pos = subsample_labels(
+            m.labels, c.rpn_batch_size_per_image, c.rpn_positive_fraction,
+            draws["rpn_pos"], draws["rpn_neg"], fg_weights=rpn_w)
+        lbl = is_pos.float()
+        rpn_cls = sigmoid_ce(_take(obj_cat, idx), lbl).mean(dim=1)
+        rpn_targets = encode_deltas(
+            anchors_cat[idx], _take(gt_boxes, _take(m.matched_idx, idx)),
+            c.rpn_bbox_reg_weights)
+        rpn_loc = ((_take(deltas_cat, idx) - rpn_targets).abs().sum(-1)
+                   * lbl).sum(dim=1) / max(c.rpn_batch_size_per_image, 1)
+
+        # --- ROI sampling: proposals + gt boxes as candidates ---
+        mm = match_boxes(cand_boxes, gt_boxes, gt_valid, c.roi_fg_iou_thresh,
+                         c.roi_fg_iou_thresh)
+        cand_labels = torch.where(cand_valid, mm.labels,
+                                  torch.full_like(mm.labels, -1))
+        roi_cw = (wtab(c.roi_fg_class_weights)[class_of(mm.matched_idx)]
+                  if c.roi_fg_class_weights else None)
+        sidx, s_pos = subsample_labels(
+            cand_labels, c.roi_batch_size_per_image, c.roi_positive_fraction,
+            draws["roi_pos"], draws["roi_neg"], fg_weights=roi_cw)
+        roi_boxes = _take(cand_boxes, sidx)                       # [B,R,4]
+        roi_gt_idx = _take(mm.matched_idx, sidx)
+        cls_target = torch.where(s_pos, _take(classes, roi_gt_idx),
+                                 torch.full_like(roi_gt_idx, c.num_classes))
+        reg_targets = encode_deltas(roi_boxes, _take(gt_boxes, roi_gt_idx),
+                                    c.roi_bbox_reg_weights)
+        r = roi_boxes.shape[1]
+        n = b * r
+        tgt = cls_target.reshape(n)
+        fg = s_pos.reshape(n).float()
+
+        # --- box head ---
+        canvas, shapes = level_canvas(
+            {k: feats[k].permute(0, 2, 3, 1) for k in ("p2", "p3", "p4", "p5")},
+            c.pooler_window)
+        pool = lambda res: pool_level_canvas(
+            canvas, shapes, roi_boxes, STRIDES, res, c.canonical_box_size,
+            c.canonical_level, window=c.pooler_window)
+        pooled = pool(c.pooler_resolution_box)
+        logits, box_deltas = self.box_head(pooled.reshape((n,) + pooled.shape[2:]))
+        if c.class_loss_weights:
+            # per-roi weight by target class, background 1.0: torch
+            # CrossEntropyLoss(weight=w) semantics, sum(w·ce)/sum(w)
+            roi_w = wtab(tuple(c.class_loss_weights) + (1.0,))[tgt]
+            cls_loss = (softmax_ce(logits, tgt) * roi_w).sum() \
+                / roi_w.sum().clamp_min(1.0)
+        else:
+            roi_w = torch.ones((n,), dtype=torch.float32, device=dev)
+            cls_loss = softmax_ce(logits, tgt).mean()
+        fg_cls = tgt.clamp(0, c.num_classes - 1)
+        per_roi_deltas = box_deltas[torch.arange(n, device=dev), fg_cls]
+        box_loss = ((per_roi_deltas - reg_targets.reshape(n, 4)).abs().sum(-1)
+                    * fg * roi_w).sum() / max(n, 1)
+        losses = {"rpn_cls": rpn_cls.mean(), "rpn_loc": rpn_loc.mean(),
+                  "cls": cls_loss, "box_reg": box_loss}
+
+        # --- mask head ---
+        if c.mask_on:
+            mres = c.mask_head_resolution
+            gt_roi = crop_and_resize_masks(
+                gt_masks.reshape((-1,) + gt_masks.shape[2:]),
+                roi_boxes.reshape(n, 4), mres,
+                index=(torch.arange(b, device=dev)[:, None]
+                       * gt_masks.shape[1] + roi_gt_idx).reshape(n))
+            mpooled = pool(c.pooler_resolution_mask)
+            mlogits = self.mask_head(mpooled.reshape((n,) + mpooled.shape[2:]))
+            per_class = torch.gather(
+                mlogits, 3, fg_cls[:, None, None, None].expand(
+                    -1, mres, mres, 1))[..., 0]
+            mask_ce = sigmoid_ce(per_class, (gt_roi > 0.5).float())
+            # Detectron2's mask_rcnn_loss: the mean over all fg rois of the
+            # batch jointly, weighted per roi by target class
+            losses["mask"] = (mask_ce.mean(dim=(1, 2)) * fg * roi_w).sum() \
+                / (fg * roi_w).sum().clamp_min(1.0)
+        return losses

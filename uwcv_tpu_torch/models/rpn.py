@@ -33,7 +33,13 @@ _FLOOR_BONUS = 1e6
 
 class RPNHead(nn.Module):
     """Shared conv head: NCHW features → (objectness [B,H,W,A],
-    deltas [B,H,W,A*4]) in f32 and NHWC, as the Flax head returns them."""
+    deltas [B,H,W,A*4]) in f32 and NHWC, as the Flax head returns them.
+
+    The weights are cast to the features' dtype at use, as the Flax convs
+    cast their f32 params: a trainer's f32 copy of this head, which runs
+    once per level, then adds the five levels' gradients in f32.  With
+    weights already in the features' dtype (the predictor) the cast is a
+    no-op."""
 
     def __init__(self, num_anchors: int, channels: int = 256):
         super().__init__()
@@ -42,12 +48,16 @@ class RPNHead(nn.Module):
         self.anchor_deltas = nn.Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feats: Dict[str, torch.Tensor]):
+        dt = feats[LEVELS[0]].dtype
+        conv = lambda m, x: F.conv2d(x, m.weight.to(dt), m.bias.to(dt),
+                                     padding=m.padding)
         obj, deltas = {}, {}
         for name in LEVELS:
-            h = F.relu(self.rpn_conv(feats[name]))
+            h = F.relu(conv(self.rpn_conv, feats[name]))
             # head outputs back to f32 (rpn.py:63-64)
-            obj[name] = self.objectness(h).permute(0, 2, 3, 1).float()
-            deltas[name] = self.anchor_deltas(h).permute(0, 2, 3, 1).float()
+            obj[name] = conv(self.objectness, h).permute(0, 2, 3, 1).float()
+            deltas[name] = conv(self.anchor_deltas,
+                                h).permute(0, 2, 3, 1).float()
         return obj, deltas
 
 
@@ -57,17 +67,23 @@ class Proposals(NamedTuple):
     valid: torch.Tensor   # [B, K] bool
 
 
+@torch.no_grad()
 def generate_proposals(obj: Dict[str, torch.Tensor],
                        deltas: Dict[str, torch.Tensor],
                        anchors: Dict[str, torch.Tensor],
                        image_size: Tuple[int, int],
-                       cfg: ModelConfig) -> Proposals:
-    """Inference-time proposal selection for a batch.
+                       cfg: ModelConfig, training: bool = False) -> Proposals:
+    """Proposal selection for a batch.
 
     obj[level]: [B,H,W,A] logits; deltas[level]: [B,H,W,A*4];
-    anchors[level]: [H*W*A, 4] for the padded image size."""
-    pre_k = cfg.rpn_pre_nms_topk_test
-    post_k = cfg.rpn_post_nms_topk_test
+    anchors[level]: [H*W*A, 4] for the padded image size.  ``training``
+    takes the train top-k and no level floor (rpn.py:87-102,141).  The
+    selection carries no gradient (Detectron2's find_top_rpn_proposals is
+    under no_grad; the NMS kernel has no backward)."""
+    pre_k = (cfg.rpn_pre_nms_topk_train if training
+             else cfg.rpn_pre_nms_topk_test)
+    post_k = (cfg.rpn_post_nms_topk_train if training
+              else cfg.rpn_post_nms_topk_test)
     b = obj[LEVELS[0]].shape[0]
     lv_boxes, lv_scores = [], []
     for name in LEVELS:
@@ -101,7 +117,7 @@ def generate_proposals(obj: Dict[str, torch.Tensor],
 
     boxes = torch.cat(lv_boxes, dim=1)                        # [B,sum_k,4]
     masked = torch.cat(cand_scores, dim=1)
-    floor = cfg.rpn_post_nms_level_floor
+    floor = 0 if training else cfg.rpn_post_nms_level_floor
     if floor > 0:
         # guarantee each level's top-`floor` survivors a slot, then report
         # the original scores

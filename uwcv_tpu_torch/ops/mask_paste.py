@@ -119,3 +119,36 @@ def paste_select_pack(probs: torch.Tensor, boxes: torch.Tensor,
     kept_r = torch.cat(kept, dim=-1)
     packed_out = packed_r.gather(-3, inv[..., None, None].expand_as(packed_r))
     return packed_out[..., :d, :, :], kept_r.gather(-1, inv)[..., :d]
+
+
+def crop_and_resize_masks(gt_masks: torch.Tensor, boxes: torch.Tensor,
+                          out_size: int, index=None) -> torch.Tensor:
+    """GT bitmasks sampled inside boxes [N,4] → [N,S,S] float targets:
+    bilinear samples at bin centres (Detectron2 BitMasks.crop_and_resize,
+    ROIAlign aligned=True on the bitmask; port of
+    ``uwcv_tpu/ops/mask_paste.py::crop_and_resize_masks``).  ``gt_masks``
+    is [N,H,W], or [M,H,W] with ``index`` [N] naming each box's mask, so
+    the caller need not gather whole masks."""
+    n = boxes.shape[0]
+    h, w = gt_masks.shape[-2:]
+    dev = boxes.device
+    if index is None:
+        index = torch.arange(n, device=dev)
+    t = (torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) \
+        / out_size
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    xs = (x1[:, None] + t * (x2 - x1).clamp_min(1e-6)[:, None] - 0.5).clamp(
+        0.0, w - 1.0)
+    ys = (y1[:, None] + t * (y2 - y1).clamp_min(1e-6)[:, None] - 0.5).clamp(
+        0.0, h - 1.0)
+    x0 = torch.floor(xs).to(torch.int64)
+    y0 = torch.floor(ys).to(torch.int64)
+    x1i = (x0 + 1).clamp_max(w - 1)
+    y1i = (y0 + 1).clamp_max(h - 1)
+    fx = (xs - x0)[:, None, :]
+    fy = (ys - y0)[:, :, None]
+    m = index[:, None, None]
+    corner = lambda yy, xx: gt_masks[m, yy[:, :, None], xx[:, None, :]].float()
+    top = corner(y0, x0) * (1 - fx) + corner(y0, x1i) * fx
+    bot = corner(y1i, x0) * (1 - fx) + corner(y1i, x1i) * fx
+    return top * (1 - fy) + bot * fy

@@ -15,6 +15,14 @@ them.  The Mosaic 8-column x alignment of the TPU path is not ported: the
 window is ``window`` wide in x too (x_align=1), which moves only where the
 nonzero weights sit, not the result.
 
+Pooling is differentiable with respect to the canvas (``PoolWindows``, the
+port of the ``custom_vjp`` ``pool_windows``): the backward
+``roi_align_windows_backward`` (the CUDA kernel ``csrc/roi_align_bwd.cu``,
+which replaces the XLA scatter-add ``_pool_windows_bwd``) adds each roi's
+back-interpolated window cotangent into a zero canvas, and ``level_canvas``
+passes that gradient back to the levels through plain autograd.  Rois
+carry no gradient, as in the JAX package.
+
 Public functions keep the JAX package's NHWC layout.
 """
 
@@ -29,6 +37,7 @@ from uwcv_tpu_torch import kernels
 LEVEL_NAMES = ("p2", "p3", "p4", "p5")
 MAX_WINDOW = 32        # largest window side the kernel stages
 POOL_SIZES = (7, 14)   # output resolutions the kernel is instantiated for
+REF_CHUNK = 512        # rois per step of the plain versions (bounds temps)
 
 
 def fpn_level_assignment(boxes: torch.Tensor, min_level: int = 2,
@@ -146,8 +155,7 @@ def window_geometry(rois: torch.Tensor, shapes, strides_vals, output_size: int,
     return li, y0.to(torch.int64), x0.to(torch.int64), wy, wx
 
 
-def roi_align_windows_reference(canvas, slab, y0, x0, wy, wx,
-                                chunk: int = 512) -> torch.Tensor:
+def roi_align_windows_reference(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
     """Plain PyTorch version of the kernel: canvas [S,Hmax,Wmax,C], slab/y0/
     x0 [R] window origins, wy/wx [R,P,win] → [R,P,P,C] in the canvas dtype.
     Both contractions take the feature dtype, and ``rows`` is rounded back
@@ -157,8 +165,8 @@ def roi_align_windows_reference(canvas, slab, y0, x0, wy, wx,
     wdt = canvas.dtype
     ar = torch.arange(win, device=canvas.device)
     out = canvas.new_empty((r, p, p, c))
-    for s in range(0, r, chunk):
-        e = min(s + chunk, r)
+    for s in range(0, r, REF_CHUNK):
+        e = min(s + REF_CHUNK, r)
         sl = slab[s:e].long()[:, None, None]
         yy = y0[s:e].long()[:, None, None] + ar[None, :, None]
         xx = x0[s:e].long()[:, None, None] + ar[None, None, :]
@@ -236,6 +244,96 @@ def roi_align_windows(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
 roi_align_windows.launches = 0
 
 
+def roi_align_windows_backward_reference(g, slab, y0, x0, wy, wx,
+                                         canvas_shape) -> torch.Tensor:
+    """Plain PyTorch version of the backward: g [R,P,P,C] (the pooled
+    output's gradient) → the canvas gradient [S,Hmax,Wmax,C] in g's dtype.
+    Per roi d_rows = wxᵀ·g and d_patch = wyᵀ·d_rows, with the weights in
+    g's dtype (the JAX vjp of ``_pool_windows_xla``, roi_align.py:353-375),
+    added into a zero canvas with ``index_put_(accumulate=True)``."""
+    r, p, win = wy.shape
+    wdt = g.dtype
+    ar = torch.arange(win, device=g.device)
+    dcanvas = g.new_zeros(canvas_shape)
+    for s in range(0, r, REF_CHUNK):
+        e = min(s + REF_CHUNK, r)
+        d_rows = torch.einsum("rqw,rpqc->rpwc", wx[s:e].to(wdt), g[s:e])
+        d_patch = torch.einsum("rph,rpwc->rhwc", wy[s:e].to(wdt), d_rows)
+        sl = slab[s:e].long()[:, None, None]
+        yy = y0[s:e].long()[:, None, None] + ar[None, :, None]
+        xx = x0[s:e].long()[:, None, None] + ar[None, None, :]
+        dcanvas.index_put_((sl, yy, xx), d_patch, accumulate=True)
+    return dcanvas
+
+
+def roi_align_windows_backward(g, slab, y0, x0, wy, wx,
+                               canvas_shape) -> torch.Tensor:
+    """The RoIAlign backward: g [R,P,P,C] f32|bf16, slab/y0/x0 [R] int32,
+    wy/wx [R,P,win] f32 → the canvas gradient [S,Hmax,Wmax,C] in g's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (or
+    raise): one block per (roi, 16-channel tile) contracts in f32 and adds
+    into an f32 scratch canvas with atomics (rois overlap), which is then
+    cast once to g's dtype."""
+    if g.device.type == "cpu":
+        return roi_align_windows_backward_reference(g, slab, y0, x0, wy, wx,
+                                                    canvas_shape)
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gradient dtype {g.dtype} not supported")
+    if len(canvas_shape) != 4:
+        raise ValueError("canvas_shape must be (S, Hmax, Wmax, C)")
+    r, p, win = wy.shape
+    s, h, w, c = (int(v) for v in canvas_shape)
+    if p not in POOL_SIZES:
+        raise ValueError(f"output size {p} not in {POOL_SIZES}")
+    if tuple(g.shape) != (r, p, p, c):
+        raise ValueError(f"gradient {tuple(g.shape)} does not match "
+                         f"{(r, p, p, c)}")
+    if wx.shape != (r, p, win) or win > MAX_WINDOW or win > h or win > w:
+        raise ValueError(f"bad window weights {tuple(wy.shape)} / "
+                         f"{tuple(wx.shape)} for canvas {tuple(canvas_shape)}")
+    for t in (slab, y0, x0):
+        if t.dtype != torch.int32 or t.shape != (r,):
+            raise ValueError("slab/y0/x0 must be [R] int32")
+    args = [g.contiguous()] + [t.contiguous() for t in (slab, y0, x0)] \
+        + [t.float().contiguous() for t in (wy, wx)]
+    if any(t.device != g.device for t in args):
+        raise ValueError("all inputs must be on the gradient's device")
+    scratch = torch.zeros((s, h, w, c), dtype=torch.float32, device=g.device)
+    if r:
+        lib = kernels.library("roi_align_bwd")
+        fn = (lib.uwcv_roi_align_windows_bwd_f32 if g.dtype == torch.float32
+              else lib.uwcv_roi_align_windows_bwd_bf16)
+        rc = fn(*[t.data_ptr() for t in args], scratch.data_ptr(), r, p, s,
+                h, w, c, win, kernels.stream_ptr(g.device))
+        kernels.check(rc, "roi_align_windows_backward")
+        roi_align_windows_backward.launches += 1
+    return scratch if g.dtype == torch.float32 else scratch.to(g.dtype)
+
+
+roi_align_windows_backward.launches = 0
+
+
+class PoolWindows(torch.autograd.Function):
+    """``roi_align_windows`` with ``roi_align_windows_backward`` as its
+    gradient.  The gradient flows to the canvas only: the window geometry
+    and weights are functions of rois that carry no gradient
+    (roi_align.py:411-415 of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, canvas, slab, y0, x0, wy, wx):
+        ctx.save_for_backward(slab, y0, x0, wy, wx)
+        ctx.canvas_shape = tuple(canvas.shape)
+        return roi_align_windows(canvas, slab, y0, x0, wy, wx)
+
+    @staticmethod
+    def backward(ctx, g):
+        slab, y0, x0, wy, wx = ctx.saved_tensors
+        dcanvas = roi_align_windows_backward(g.contiguous(), slab, y0, x0,
+                                             wy, wx, ctx.canvas_shape)
+        return dcanvas, None, None, None, None, None
+
+
 def pool_level_canvas(canvas: torch.Tensor, shapes, rois: torch.Tensor,
                       strides: Dict[str, int], output_size: int,
                       canonical_size: float = 224.0, canonical_level: int = 4,
@@ -250,7 +348,7 @@ def pool_level_canvas(canvas: torch.Tensor, shapes, rois: torch.Tensor,
         output_size, canonical_size, canonical_level, samples_per_bin, window)
     slab = (torch.arange(b, device=rois.device)[:, None] * 5
             + li.reshape(b, r)).reshape(-1)
-    pooled = roi_align_windows(canvas, slab.to(torch.int32),
+    pooled = PoolWindows.apply(canvas, slab.to(torch.int32),
                                y0.to(torch.int32), x0.to(torch.int32), wy, wx)
     return pooled.reshape(b, r, output_size, output_size, c)
 

@@ -55,6 +55,31 @@ def nonempty_boxes(boxes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     return (w > threshold) & (h > threshold)
 
 
+def encode_deltas(
+    src_boxes: torch.Tensor,
+    target_boxes: torch.Tensor,
+    weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0),
+) -> torch.Tensor:
+    """Regression targets (dx,dy,dw,dh) that map src→target
+    (Box2BoxTransform.get_deltas), in the JAX package's expression order."""
+    wx, wy, ww, wh = weights
+    src_w = (src_boxes[..., 2] - src_boxes[..., 0]).clamp_min(1e-6)
+    src_h = (src_boxes[..., 3] - src_boxes[..., 1]).clamp_min(1e-6)
+    src_cx = src_boxes[..., 0] + 0.5 * src_w
+    src_cy = src_boxes[..., 1] + 0.5 * src_h
+
+    tgt_w = (target_boxes[..., 2] - target_boxes[..., 0]).clamp_min(1e-6)
+    tgt_h = (target_boxes[..., 3] - target_boxes[..., 1]).clamp_min(1e-6)
+    tgt_cx = target_boxes[..., 0] + 0.5 * tgt_w
+    tgt_cy = target_boxes[..., 1] + 0.5 * tgt_h
+
+    dx = wx * (tgt_cx - src_cx) / src_w
+    dy = wy * (tgt_cy - src_cy) / src_h
+    dw = ww * torch.log(tgt_w / src_w)
+    dh = wh * torch.log(tgt_h / src_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
+
+
 def decode_deltas(
     deltas: torch.Tensor,
     boxes: torch.Tensor,

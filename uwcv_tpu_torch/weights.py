@@ -62,6 +62,47 @@ def params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def flax_leaf_names(model: nn.Module) -> Dict[str, str]:
+    """Each Flax leaf path of ``model`` (``params/...``) → the name of its
+    tensor in the model's state dict (a parameter, or a FrozenBN buffer)."""
+    from uwcv_tpu_torch.models.resnet import FrozenBN
+
+    out = {}
+    for mod_name, mod in model.named_modules():
+        path = "params/" + mod_name.replace(".", "/")
+        pre = f"{mod_name}." if mod_name else ""
+        if isinstance(mod, FrozenBN):
+            out[f"{path}/frozen_bn_scale"] = pre + "scale"
+            out[f"{path}/frozen_bn_bias"] = pre + "bias"
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            out[f"{path}/kernel"] = pre + "weight"
+            if mod.bias is not None:
+                out[f"{path}/bias"] = pre + "bias"
+    return out
+
+
+def to_flax_layout(path: str, a: np.ndarray) -> np.ndarray:
+    """A tensor of the port's layout → the Flax leaf ``path``'s layout
+    (a view; the inverse of ``params_from_flax``'s transposes)."""
+    if not path.endswith("/kernel"):
+        return a
+    if a.ndim == 4 and path.split("/")[-2] == "deconv":
+        return a.transpose(2, 3, 0, 1)[::-1, ::-1]          # IOHW → flipped HWIO
+    if a.ndim == 4:
+        return a.transpose(2, 3, 1, 0)                      # OIHW → HWIO
+    return a.T                                              # [out,in] → [in,out]
+
+
+def params_to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_flax``: a model's parameters and
+    FrozenBN buffers → flat ``params/...`` Flax params (f32 numpy), the
+    layout ``save_params_npz`` writes and ``load_params_npz`` reads."""
+    sd = model.state_dict()
+    return {path: np.ascontiguousarray(to_flax_layout(
+        path, sd[name].detach().float().cpu().numpy()))
+        for path, name in flax_leaf_names(model).items()}
+
+
 def load_npz(path: str) -> Dict[str, np.ndarray]:
     """Load a ``save_params_npz`` file (e.g. ``assets/gate/gate_ckpt.npz``)
     → flat Flax params."""
@@ -74,25 +115,12 @@ def flax_param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     shape, derived from the port's module tree (the inverse of
     ``params_from_flax``).  Seeded weights for a model the repo has no
     checkpoint of are made in this layout."""
-    from uwcv_tpu_torch.models.resnet import FrozenBN
     from uwcv_tpu_torch.models.rcnn import MaskRCNN
 
     with torch.device("meta"):
         model = MaskRCNN(cfg)
-    shapes = {}
-    for mod_name, mod in model.named_modules():
-        path = "params/" + mod_name.replace(".", "/")
-        if isinstance(mod, FrozenBN):
-            shapes[f"{path}/frozen_bn_scale"] = tuple(mod.scale.shape)
-            shapes[f"{path}/frozen_bn_bias"] = tuple(mod.bias.shape)
-        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-            w = tuple(mod.weight.shape)
-            if isinstance(mod, nn.Conv2d):
-                shapes[f"{path}/kernel"] = (w[2], w[3], w[1], w[0])
-            elif isinstance(mod, nn.ConvTranspose2d):
-                shapes[f"{path}/kernel"] = (w[2], w[3], w[0], w[1])
-            else:
-                shapes[f"{path}/kernel"] = (w[1], w[0])
-            if mod.bias is not None:
-                shapes[f"{path}/bias"] = tuple(mod.bias.shape)
-    return shapes
+    sd = model.state_dict()
+    # zero-size stand-ins: only the shape goes through the transposes
+    return {path: to_flax_layout(path, np.broadcast_to(
+        np.zeros((), np.uint8), tuple(sd[name].shape))).shape
+        for path, name in flax_leaf_names(model).items()}
