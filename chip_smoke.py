@@ -14,9 +14,11 @@ Phases (any failure raises and exits non-zero):
    kernel with ``torch.profiler`` (``device_split``), and time RoIAlign
    once more with its rois in (slab, y0, x0) order; the RoIAlign backward
    at the training shapes (canvas [10, 200, 200, 256], R = 64, P = 7 and
-   14; f32 at max err <= 1e-4·max|ref|, bf16 at <= 2e-2·max|ref|; rois at
-   the border, 64 copies of one roi, R = 0) and NMS at the training RPN's
-   10 × 2000;
+   14) against its plain version in f32 with the weights rounded as the
+   kernel rounds them (f32 at max err <= 1e-5·max|ref|, bf16 within one
+   rounding elementwise), each call into a NaN-filled allocator block and
+   repeated bit-identically (rois at the border, 64 copies of one roi,
+   R = 0, and a timed R = 2·512) and NMS at the training RPN's 10 × 2000;
 3. gate golden: the committed R26/FPN-64 gate checkpoint through
    ``Predictor.predict_batch`` in f32 (TF32 off) against the JAX package's
    outputs committed in ``tests/data/torch_port_gate_golden.npz``;
@@ -49,9 +51,11 @@ Phases (any failure raises and exits non-zero):
    after (RoIAlign and its backward twice a step, NMS once); finite logged
    losses and weights; ``model_final.npz`` loads into ``Predictor``;
    ms/step, img/s, a CUDA-event split (forward / backward / optimizer),
-   peak memory and the device's idle share;
+   peak memory, the device's idle share and the device time of the ops on
+   the pooler's canvas;
 10. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
-   ``nms_greedy``) of the ``uwcv_tpu_torch`` package under DIR, e.g. an
+   ``roi_align_windows_backward``, ``nms_greedy``) of the
+   ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
    against these on the timed inputs of phase 2: each side in its own
    process, in turns (DIR, this, this, DIR); their outputs must agree as
@@ -131,6 +135,28 @@ def device_split(fn, calls: int = 10) -> dict:
         us = ev.self_device_time_total
         if us > 0:
             key = ev.key[:48]
+            split[key] = split.get(key, 0.0) + us / calls / 1e3
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def op_split_by_shape(fn, shapes, calls: int = 5) -> dict:
+    """Device time per call of ``fn`` in the aten ops that take an input of
+    one of ``shapes`` (each a list), by op name and input shapes, in ms
+    (``torch.profiler`` with the shapes recorded; each op's own kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        us = ev.self_device_time_total
+        if us > 0 and any(list(s) in shapes for s in ev.input_shapes):
+            key = f"{ev.key} {ev.input_shapes}"
             split[key] = split.get(key, 0.0) + us / calls / 1e3
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
 
@@ -398,42 +424,75 @@ def check_nms(dev):
             }, launches
 
 
+BWD_TILE = 8     # side of csrc/roi_align_bwd.cu's output tiles (kTile)
+
+
 def _roi_bwd_bound(g, slab, y0, x0, wy, wx, canvas_shape):
     """Least time for one backward call: g, the weights and the window
     origins read once and the canvas gradient written once (in g's dtype);
     operations, the two contractions over each roi's sub-window.  Also the
-    floor of this design: g, each sub-window cell's atomic read and write
-    in f32, and the f32 scratch zeroed and (bf16) read for the cast.
-    → (bound ms, what bounds it, design floor ms)."""
-    from uwcv_tpu_torch.ops.roi_align import subwindow_extent
+    floor of this design: the same reads, the task pass's tasks and rounded
+    weights written once, each roi's g, task and weights read once per
+    ``BWD_TILE``² output tile that its sub-window overlaps, and the canvas
+    gradient written once.  → (bound ms, what bounds it, design floor ms)."""
+    from uwcv_tpu_torch.ops.roi_align import MAX_WINDOW, subwindow_extent
 
     r, p, win = wy.shape
     n_canvas = int(np.prod(canvas_shape))
     c = canvas_shape[-1]
     elem = g.element_size()
-    _, nh = subwindow_extent(wy.to(g.dtype))
-    _, nw = subwindow_extent(wx.to(g.dtype))
-    cells = float((nh * nw).sum())
+    hlo, nh = subwindow_extent(wy.to(g.dtype))
+    wlo, nw = subwindow_extent(wx.to(g.dtype))
     g_bytes = r * p * p * c * elem
-    bytes_moved = g_bytes + 2 * r * p * win * 4 + 3 * r * 4 + n_canvas * elem
+    inputs = 2 * r * p * win * 4 + 3 * r * 4
+    bytes_moved = g_bytes + inputs + n_canvas * elem
     flops = 2.0 * p * c * float((p * nw + nh * nw).sum())
     b_ms, b_by = bound(bytes_moved, flops, g.dtype)
-    # zeroing writes the scratch; the cast (not for f32) reads it and
-    # writes the canvas gradient
-    scratch = n_canvas * 4 + (0 if g.dtype == torch.float32
-                              else n_canvas * (4 + elem))
-    floor = (g_bytes + cells * c * 8 + scratch) / HBM_BYTES_PER_S * 1e3
-    return b_ms, b_by, floor
+    # output tiles each roi's sub-window overlaps (none when it is empty)
+    ys, xs = y0.long() + hlo, x0.long() + wlo
+    span = lambda lo, n: torch.where(
+        n > 0, (lo + n - 1) // BWD_TILE - lo // BWD_TILE + 1, 0)
+    pairs = int((span(ys, nh) * span(xs, nw)).sum())
+    per_roi = 16 + 2 * p * MAX_WINDOW * elem      # a task and its weights
+    floor_bytes = (inputs + r * per_roi + pairs * (p * p * c * elem + per_roi)
+                   + n_canvas * elem)
+    return b_ms, b_by, floor_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_bwd_result(got, g, geo, canvas_shape):
+    """A backward kernel's canvas gradient against the plain version in f32
+    on g's values, with the weights rounded to g's dtype as the kernel
+    rounds them: f32 within 1e-5·max|ref| (another order of f32 sums); bf16
+    within one rounding, elementwise |got − ref| <= 2⁻⁷·|ref| +
+    1e-5·max|ref|.  → (max abs error, max|ref|, ok)."""
+    from uwcv_tpu_torch.ops.roi_align import (
+        roi_align_windows_backward_reference,
+    )
+
+    slab, y0, x0, wy, wx = geo
+    rnd = lambda w: w.to(g.dtype).float()
+    ref = roi_align_windows_backward_reference(g.float(), slab, y0, x0,
+                                               rnd(wy), rnd(wx), canvas_shape)
+    diff = (got.float() - ref).abs()
+    top = ref.abs().max().item()
+    if g.dtype == torch.float32:
+        ok = diff.max().item() <= 1e-5 * top
+    else:
+        ok = bool((diff <= 2.0 ** -7 * ref.abs() + 1e-5 * top).all())
+    ok = ok and tuple(got.shape) == tuple(canvas_shape) and got.dtype == g.dtype
+    return diff.max().item(), top, ok
 
 
 def check_roi_align_backward(dev):
     """The RoIAlign backward at the training shapes (B=2 at 800², canvas
-    [10, 200, 200, 256], R = 2·32 rois, P = 7 and 14) against its plain
-    version, in f32 (max error <= 1e-4·max|ref|: the atomics add in
-    another order) and bf16 (<= 2e-2·max|ref|: one rounding at the end
-    against the plain version's bf16 contractions and bf16 sums); edge
-    cases: rois at the canvas border, 64 copies of one roi, R = 0.  The
-    bf16 cases are timed.  → (the P=7 bf16 record, all cases)."""
+    [10, 200, 200, 256], R = 2·32 rois, P = 7 and 14) in f32 and bf16, held
+    by ``check_bwd_result``; each call made into a caching-allocator block
+    filled with NaN just before (no NaN may come back) and repeated (the two
+    results bit-identical).  Edge cases: rois at the canvas border, 64
+    copies of one roi, R = 0; and R = 2·512 (Detectron2's default
+    ``roi_batch_size_per_image``).  The bf16 cases of R = 64 and 2·512 are
+    timed.  → (the P=7 R=64 bf16 record, all cases, the timed calls'
+    arguments by "P=.. R=..")."""
     from uwcv_tpu_torch.ops.roi_align import (
         level_canvas,
         level_strides,
@@ -452,42 +511,49 @@ def check_roi_align_backward(dev):
     border = torch.tensor([[0.0, 0.0, 40.0, 30.0], [760.0, 770.0, 800.0, 800.0],
                            [0.0, 700.0, 800.0, 800.0], [790.0, 0.0, 800.0,
                                                         800.0]])
-    cases, timed = [], None
+    cases, timed, timed_args = [], None, {}
     for p in (7, 14):
         rois = _proposal_like_rois(rng, b, r_per, size, size)
         rois[:, 1:5] = border
         same = rois[:1, 5:6].expand(b, r_per, 4)
-        for name, rr in (("proposal-like", rois), ("one roi ×64", same)):
+        wide = _proposal_like_rois(rng, b, 512, size, size)
+        for name, rr in (("proposal-like", rois), ("one roi ×64", same),
+                         ("proposal-like 2×512", wide)):
+            per = rr.shape[1]
             li, y0, x0, wy, wx = window_geometry(
                 rr.reshape(-1, 4).to(dev), shapes, level_strides(strides), p,
                 224.0, 4, 2, 32)
-            slab = (torch.arange(b, device=dev).repeat_interleave(r_per) * 5
+            slab = (torch.arange(b, device=dev).repeat_interleave(per) * 5
                     + li).to(torch.int32)
             full = (slab, y0.to(torch.int32), x0.to(torch.int32), wy, wx)
             for dtype in (torch.float32, torch.bfloat16):
-                for r in ((b * r_per, 0) if name == "proposal-like"
-                          else (b * r_per,)):
+                for r in ((b * per, 0) if name == "proposal-like"
+                          else (b * per,)):
                     geo = tuple(t[:r] for t in full)
                     g = torch.from_numpy(rng.standard_normal(
                         (r, p, p, c), dtype=np.float32)).to(dev, dtype)
+                    # the block the output will take holds NaN
+                    poison = torch.full(canvas_shape, float("nan"),
+                                        dtype=dtype, device=dev)
+                    poisoned_at = poison.data_ptr()
+                    del poison
                     got = roi_align_windows_backward(g, *geo, canvas_shape)
-                    want = roi_align_windows_backward_reference(
-                        g, *geo, canvas_shape)
+                    again = roi_align_windows_backward(g, *geo, canvas_shape)
                     torch.cuda.synchronize()
-                    err = (got.float() - want.float()).abs().max().item()
-                    ref = want.float().abs().max().item()
-                    tol = 1e-4 if dtype == torch.float32 else 2e-2
-                    ok = (tuple(got.shape) == canvas_shape
-                          and got.dtype == dtype and err <= tol * ref)
+                    err, ref, ok = check_bwd_result(got, g, geo, canvas_shape)
                     case = {"rois": name, "dtype": str(dtype).replace(
                         "torch.", ""), "P": p, "R": r, "max_abs_err": err,
-                        "max_abs_ref": ref, "ok": ok}
+                        "max_abs_ref": ref, "ok": ok,
+                        "into_nan_block": got.data_ptr() == poisoned_at,
+                        "nan": bool(torch.isnan(got).any()),
+                        "repeat_identical": torch.equal(got, again)}
+                    del again
                     log(f"  roi_align_windows_backward {case}")
-                    if not ok:
+                    if not (ok and case["into_nan_block"] and not case["nan"]
+                            and case["repeat_identical"]):
                         raise RuntimeError(
                             f"roi_align_windows_backward disagrees: {case}")
-                    if (name == "proposal-like" and dtype == torch.bfloat16
-                            and r):
+                    if name != "one roi ×64" and dtype == torch.bfloat16 and r:
                         args = (g,) + geo + (canvas_shape,)
                         case["ms"] = cuda_ms(
                             lambda: roi_align_windows_backward(*args))
@@ -505,10 +571,12 @@ def check_roi_align_backward(dev):
                             f"{case['bound_ms']:.4f} ms ({case['bound_by']}), "
                             f"design floor {floor:.4f} ms; "
                             f"device split {case['device_split_ms']}")
-                        if p == 7:
+                        timed_args[f"P={p} R={r}"] = args
+                        if name == "proposal-like" and p == 7:
                             timed = case
+                    del got
                     cases.append(case)
-    return timed, cases
+    return timed, cases, timed_args
 
 
 def _rpn_train_problems(rng):
@@ -523,38 +591,47 @@ def _rpn_train_problems(rng):
 
 # ---------------------------------------------------------------- against
 
-def time_wrappers(inputs: str, out: str) -> None:
+def time_wrappers(inputs: str, out: str, outputs: bool = True) -> None:
     """Time the kernel wrappers of the ``uwcv_tpu_torch`` first on
     ``sys.path`` on the inputs saved at ``inputs``; save {name: (ms, the
-    outputs on the host)} at ``out``."""
+    outputs on the host, or None without ``outputs``)} at ``out``."""
     from uwcv_tpu_torch.ops.nms import nms_greedy
-    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
+    from uwcv_tpu_torch.ops.roi_align import (
+        roi_align_windows,
+        roi_align_windows_backward,
+    )
 
     saved = torch.load(inputs, map_location="cuda")
     calls = {f"roi_align_windows P={p}": (roi_align_windows, [a])
              for p, a in sorted(saved["roi"].items())}
+    calls.update({f"roi_align_windows_backward {k}":
+                  (roi_align_windows_backward, [a])
+                  for k, a in sorted(saved["bwd"].items())})
     calls["nms_greedy (both calls)"] = (nms_greedy, saved["nms"])
     result = {}
     for name, (fn, arg_list) in calls.items():
         run = lambda: [fn(*a) for a in arg_list]
-        result[name] = (cuda_ms(run), [o.cpu() for o in run()])
+        result[name] = (cuda_ms(run),
+                        [o.cpu() for o in run()] if outputs else None)
     torch.save(result, out)
 
 
-def compare_against(root: str, roi_args, nms_calls) -> dict:
+def compare_against(root: str, roi_args, nms_calls, bwd_args) -> dict:
     """The kernel wrappers of the package under ``root`` against these on
-    the same inputs, each side in its own process, in turns (root, this,
-    this, root).  → {name: times}; raises when the outputs disagree."""
+    the same inputs (RoIAlign by P, its backward by "P=.. R=..", the NMS
+    calls), each side in its own process, in turns (root, this, this,
+    root).  → {name: times}; raises when the outputs disagree."""
     work = os.path.join(REPO, "build", "against")
     os.makedirs(work, exist_ok=True)
     inputs = os.path.join(work, "inputs.pt")
-    torch.save({"roi": roi_args, "nms": nms_calls}, inputs)
+    torch.save({"roi": roi_args, "nms": nms_calls, "bwd": bwd_args}, inputs)
     turns = []
     for i, pkg in enumerate((root, REPO, REPO, root)):
         out = os.path.join(work, f"turn{i}.pt")
+        # the first turn of each side keeps its outputs for the comparison
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--time-wrappers", os.path.abspath(pkg), inputs, out],
-                       check=True)
+                        "--time-wrappers", os.path.abspath(pkg), inputs, out]
+                       + (["--times-only"] if i > 1 else []), check=True)
         turns.append(torch.load(out))
     result = {}
     for name, (_, theirs) in turns[0].items():
@@ -967,7 +1044,7 @@ def check_train_golden(dev, out_dir=None, loss_rtol: float = 1e-3,
     draws, through ``Trainer.train_step``: each step's losses within
     ``loss_rtol`` of the JAX package's and the step-1 gradient norm of
     every trainable leaf within ``norm_rtol`` (cuDNN's backward algorithms
-    and the atomics sum in other orders)."""
+    sum in other orders than XLA's)."""
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
     from uwcv_tpu_torch.weights import flax_leaf_names, load_npz
@@ -1148,13 +1225,26 @@ def run_train_full_width(dev) -> dict:
         f"{1 - busy / step_ms:.1%}; {1 - busy / synced_ms:.1%} logging "
         f"every step; torch.profiler over 5 steps); top kernels (ms/step): "
         + json.dumps({k: round(v, 3) for k, v in top.items()}))
+    # the ops on the pooler's canvas and its gradient ([5B, Hmax, Wmax, C]
+    # and its [B, 5, Hmax, Wmax, C] view; p2 at stride 4 is the largest
+    # level): B1-bwd's output, autograd's add of the box and mask canvas
+    # gradients, level_canvas's fill, copies and slice backward
+    b = cfg.solver.ims_per_batch
+    hw = [max(n // 4, 32) for n in cfg.input.train_size]
+    canvas = [[5 * b, *hw, cfg.model.fpn_channels],
+              [b, 5, *hw, cfg.model.fpn_channels]]
+    canvas_ops = op_split_by_shape(lambda: trainer.train_step(batch, gen),
+                                   canvas)
+    log(f"  ops on the canvas {canvas[0]} (ms/step, torch.profiler over 5 "
+        f"steps): {sum(canvas_ops.values()):.3f} in all; "
+        + json.dumps({k: round(v, 4) for k, v in canvas_ops.items()}))
     return {"ms_per_step": step_ms, "img_per_s": 2e3 / step_ms,
             "ms_per_step_logging_every_step": synced_ms,
             "split_ms": split, "peak_gib": peak / 2**30,
             "launches": launches, "steps": n_steps,
             "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
             "idle_share_logging_every_step": 1 - busy / synced_ms,
-            "top_kernels_ms": top,
+            "top_kernels_ms": top, "canvas_ops_ms": canvas_ops,
             "losses_first_last": [first["total_loss"], last["total_loss"]]}
 
 
@@ -1165,6 +1255,8 @@ def main(argv=None) -> int:
                          "uwcv_tpu_torch package under DIR against these")
     # the child process of --against: PKG INPUTS OUT
     ap.add_argument("--time-wrappers", nargs=3, help=argparse.SUPPRESS)
+    ap.add_argument("--times-only", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1172,7 +1264,7 @@ def main(argv=None) -> int:
     if args.time_wrappers:
         pkg, inputs, out = args.time_wrappers
         sys.path.insert(0, pkg)
-        time_wrappers(inputs, out)
+        time_wrappers(inputs, out, outputs=not args.times_only)
         return 0
     sys.path.insert(0, REPO)
     from uwcv_tpu_torch import kernels
@@ -1197,7 +1289,7 @@ def main(argv=None) -> int:
 
     log("[kernels] against their plain versions")
     roi_timed, roi_cases, roi_args = check_roi_align(dev)
-    bwd_timed, bwd_cases = check_roi_align_backward(dev)
+    bwd_timed, bwd_cases, bwd_args = check_roi_align_backward(dev)
     nms_rec, nms_calls = check_nms(dev)
 
     log("[golden] gate checkpoint vs committed JAX outputs")
@@ -1224,7 +1316,8 @@ def main(argv=None) -> int:
     against = {}
     if args.against:
         log(f"[against] kernel wrappers of {args.against} against these")
-        against = compare_against(args.against, roi_args, nms_calls)
+        against = compare_against(args.against, roi_args, nms_calls,
+                                  bwd_args)
 
     records = [
         {"name": "roi_align_windows", "route": "cuda",
@@ -1268,8 +1361,10 @@ def main(argv=None) -> int:
     ]
     if against:
         records[0]["against"] = {k: v for k, v in against.items()
-                                 if k.startswith("roi_align")}
+                                 if k.startswith("roi_align_windows P")}
         records[1]["against"] = against["nms_greedy (both calls)"]
+        records[2]["against"] = {k: v for k, v in against.items()
+                                 if k.startswith("roi_align_windows_backward")}
     log(json.dumps({"folder": folder, "folder_golden": folder_golden,
                     "eval": gate_eval, "train_golden": train_golden,
                     "train": train}))

@@ -113,30 +113,87 @@ def test_roi_align_kernel_matches_plain(dev, dtype, c, p, r):
         assert (got - want).abs().max() <= tol * want.abs().max()
 
 
+def _bwd_args(dev, dtype, c, p, r):
+    """(g, slab, y0, x0, wy, wx, canvas shape) for the backward."""
+    args = _pool_args(dev, dtype, c, p, r)
+    g = torch.randn(r, p, p, c, generator=torch.Generator().manual_seed(r)
+                    ).to(dev, dtype)
+    return (g,) + args[1:] + (tuple(args[0].shape),)
+
+
 @pytest.mark.parametrize("r", [0, 1, 64, 2000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,p", [(64, 7), (256, 7), (256, 14), (12, 14)])
 def test_roi_align_backward_kernel_matches_plain(dev, dtype, c, p, r):
     """The backward kernel against its plain version in f32 on the same
-    values: f32 max error <= 1e-4·max|ref| (the atomics add in another
-    order), bf16 <= 2e-2·max|ref| (weights rounded to bf16, one rounding at
-    the end; the bf16 plain version's own bf16 sums over 2000 overlapping
-    rois would dominate the comparison); C not a multiple of the
-    16-channel tile included."""
-    args = _pool_args(dev, dtype, c, p, r)
-    canvas_shape = tuple(args[0].shape)
-    g = torch.randn(r, p, p, c, generator=torch.Generator().manual_seed(r)
-                    ).to(dev, dtype)
-    got = roi_align_windows_backward(g, *args[1:], canvas_shape)
-    want = roi_align_windows_backward_reference(g.float(), *args[1:],
-                                                canvas_shape)
-    assert got.shape == canvas_shape and got.dtype == dtype
+    values with the weights rounded as the kernel rounds them
+    (``chip_smoke.check_bwd_result``): f32 max error <= 1e-5·max|ref|
+    (another order of f32 sums), bf16 within one rounding elementwise,
+    |got − ref| <= 2⁻⁷·|ref| + 1e-5·max|ref|; C = 12, not a multiple of
+    a 16-byte chunk, included; R = 0 gives zeros."""
+    from chip_smoke import check_bwd_result
+
+    g, *geo, shape = _bwd_args(dev, dtype, c, p, r)
+    got = roi_align_windows_backward(g, *geo, shape)
+    assert got.shape == shape and got.dtype == dtype
     if r:
-        tol = 1e-4 if dtype == torch.float32 else 2e-2
-        err = (got.float() - want.float()).abs().max()
-        assert err <= tol * want.float().abs().max()
+        err, top, ok = check_bwd_result(got, g, tuple(geo), shape)
+        assert ok, (err, top)
     else:
         assert not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,p,r", [(256, 7, 64), (256, 14, 64),
+                                   (64, 7, 2000), (12, 14, 64)])
+def test_roi_align_backward_kernel_repeats_bit_identical(dev, dtype, c, p, r):
+    """Each cell sums its rois in roi order: two calls on the same inputs
+    give the same bits (the atomics of an earlier design did not)."""
+    g, *geo, shape = _bwd_args(dev, dtype, c, p, r)
+    a = roi_align_windows_backward(g, *geo, shape)
+    b = roi_align_windows_backward(g, *geo, shape)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [256, 12])
+def test_roi_align_backward_writes_every_cell(dev, dtype, c):
+    """The output comes from ``torch.empty``: with the caching allocator's
+    block filled with NaN just before the call, no NaN comes back (padding
+    cells, cells no roi reaches and tail channels are written too)."""
+    g, *geo, shape = _bwd_args(dev, dtype, c, 7, 64)
+    poison = torch.full(shape, float("nan"), dtype=dtype, device=dev)
+    at = poison.data_ptr()
+    del poison
+    got = roi_align_windows_backward(g, *geo, shape)
+    assert got.data_ptr() == at
+    assert not torch.isnan(got).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_kernel_past_the_tile_bitmap(dev, dtype):
+    """A canvas of more than 65,536 8×8 tiles (70 slabs of 256²), past the
+    kernel's shared-memory tile bitmap: every tile is summed as an item,
+    and the result still holds against the plain version."""
+    from chip_smoke import check_bwd_result
+
+    gen = torch.Generator().manual_seed(5)
+    s, h, w, c, p, r, win = 70, 256, 256, 8, 7, 200, 32
+    shape = (s, h, w, c)
+    wy = torch.rand(r, p, win, generator=gen)
+    wx = torch.rand(r, p, win, generator=gen)
+    wy[:, :, 20:] = 0.0
+    geo = (torch.randint(0, s, (r,), generator=gen, dtype=torch.int32),
+           torch.randint(0, h - win + 1, (r,), generator=gen,
+                         dtype=torch.int32),
+           torch.randint(0, w - win + 1, (r,), generator=gen,
+                         dtype=torch.int32), wy, wx)
+    g = torch.randn(r, p, p, c, generator=gen).to(dtype)
+    geo = tuple(t.to(dev) for t in geo)
+    g = g.to(dev)
+    got = roi_align_windows_backward(g, *geo, shape)
+    err, top, ok = check_bwd_result(got, g, geo, shape)
+    assert ok, (err, top)
 
 
 def test_roi_align_backward_counts_launches_and_rejects_bad_input(dev):
@@ -209,12 +266,16 @@ def test_chip_smoke_against_compares_two_packages(dev):
     import chip_smoke
 
     roi = {p: _pool_args(dev, torch.bfloat16, 64, p, 200) for p in (7, 14)}
+    bwd = {f"P={p}": _bwd_args(dev, torch.bfloat16, 64, p, 64)
+           for p in (7, 14)}
     g = torch.Generator().manual_seed(3)
     valid = torch.ones(4, 300, dtype=torch.bool, device=dev)
     nms = [(_clustered(g, 4, 300).to(dev), valid, 0.7)]
-    got = chip_smoke.compare_against(chip_smoke.REPO, roi, nms)
+    got = chip_smoke.compare_against(chip_smoke.REPO, roi, nms, bwd)
     assert sorted(got) == ["nms_greedy (both calls)",
-                           "roi_align_windows P=14", "roi_align_windows P=7"]
+                           "roi_align_windows P=14", "roi_align_windows P=7",
+                           "roi_align_windows_backward P=14",
+                           "roi_align_windows_backward P=7"]
     for rec in got.values():
         assert len(rec["turns_ms"]) == 4
         assert all(t > 0 for t in rec["turns_ms"])

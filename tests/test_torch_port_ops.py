@@ -43,6 +43,7 @@ from uwcv_tpu_torch.ops.roi_align import (
     level_canvas,
     level_strides,
     multilevel_roi_align_batched,
+    roi_align_windows_backward_reference,
     roi_align_windows_reference,
     subwindow_extent,
     window_geometry,
@@ -331,6 +332,151 @@ def test_chip_smoke_roi_bound_counts_covered_cells(dtype, whole):
     want = chip_smoke.bound(want_bytes, want_flops, dtype)
     assert got[1] == want[1]
     assert got[0] == pytest.approx(want[0], rel=1e-12)
+
+
+# ------------------------------------------------- RoIAlign backward (B1-bwd)
+
+def _bwd_problem(dtype, p, c=12, r=30, seed=0):
+    """Proposal-like rois (an image-wide bar, zero boxes and corner boxes
+    among them) on a small batch of 2, g drawn in ``dtype``.  → (g, (slab,
+    y0, x0, wy, wx), canvas shape)."""
+    rng = np.random.default_rng(seed + p)
+    b, h, w, win = 2, 136, 168, 32
+    feats = {f"p{l}": T(np.zeros((b, h >> l, w >> l, c), np.float32))
+             for l in range(2, 6)}
+    canvas, shapes = level_canvas(feats, win)
+    side = np.exp(rng.uniform(np.log(4), np.log(150), (r, 2)))
+    ctr = rng.uniform(0, 1, (r, 2)) * [w, h]
+    rois = np.concatenate([ctr - side / 2, ctr + side / 2], -1)
+    rois[:, 0::2] = rois[:, 0::2].clip(0, w)
+    rois[:, 1::2] = rois[:, 1::2].clip(0, h)
+    rois[0] = [5, h / 2 - 4, w - 5, h / 2 + 4]        # image-wide bar
+    rois[1] = 0.0                                      # invalid slot
+    rois[2] = [0, 0, 9, 7]                             # canvas corners
+    rois[3] = [w - 30, h - 20, w, h]
+    rois[4] = rois[5] = rois[6]                        # overlapping copies
+    li, y0, x0, wy, wx = window_geometry(
+        T(rois.astype(np.float32)), shapes, level_strides(STRIDES), p,
+        224.0, 4, 2, win)
+    slab = ((torch.arange(r) % b) * 5 + li).to(torch.int32)
+    g = T(rng.standard_normal((r, p, p, c), dtype=np.float32)).to(dtype)
+    return g, (slab, y0.to(torch.int32), x0.to(torch.int32), wy, wx), \
+        tuple(canvas.shape)
+
+
+def _bwd_tile_mirror(g, slab, y0, x0, wy, wx, canvas_shape, tile=8):
+    """csrc/roi_align_bwd.cu's algorithm written out in torch: each roi's
+    task (the nonzero sub-window of its weights rounded to g's dtype), then
+    for each tile × tile block of each slab the rois whose sub-window
+    overlaps it, in roi order, summed in f32 and rounded once to g's dtype.
+    The output starts as NaN, so a cell that no tile writes shows."""
+    dt = g.dtype
+    ns, h, w, _ = canvas_shape
+    wyr, wxr = wy.to(dt).float(), wx.to(dt).float()
+    hlo, nh = subwindow_extent(wy.to(dt))
+    wlo, nw = subwindow_extent(wx.to(dt))
+    ys, xs = (y0.long() + hlo).tolist(), (x0.long() + wlo).tolist()
+    hlo, nh, wlo, nw = hlo.tolist(), nh.tolist(), wlo.tolist(), nw.tolist()
+    out = torch.full(canvas_shape, float("nan"), dtype=dt)
+    gf = g.float()
+    for s in range(ns):
+        mine = [r for r in range(len(slab))
+                if int(slab[r]) == s and nh[r] and nw[r]]
+        for ty in range(0, h, tile):
+            for tx in range(0, w, tile):
+                th, tw = min(tile, h - ty), min(tile, w - tx)
+                acc = torch.zeros((th, tw) + tuple(g.shape[3:]))
+                for r in mine:
+                    # the tile's rows and columns inside the sub-window
+                    r0, r1 = max(ty, ys[r]), min(ty + th, ys[r] + nh[r])
+                    c0, c1 = max(tx, xs[r]), min(tx + tw, xs[r] + nw[r])
+                    if r0 >= r1 or c0 >= c1:
+                        continue
+                    wy_t = wyr[r][:, hlo[r] + r0 - ys[r]:hlo[r] + r1 - ys[r]]
+                    wx_t = wxr[r][:, wlo[r] + c0 - xs[r]:wlo[r] + c1 - xs[r]]
+                    d_rows = torch.einsum("qw,pqc->pwc", wx_t, gf[r])
+                    acc[r0 - ty:r1 - ty, c0 - tx:c1 - tx] += torch.einsum(
+                        "ph,pwc->hwc", wy_t, d_rows)
+                out[s, ty:ty + th, tx:tx + tw] = acc.to(dt)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [7, 14])
+def test_roi_align_backward_tiles_match_plain(dtype, p):
+    """The backward kernel's premise: owning output tiles, each summing the
+    rois whose sub-window overlaps it in roi order with one rounding, writes
+    every cell and gives the plain version (``chip_smoke.check_bwd_result``:
+    f32 within 1e-5·max|ref|, bf16 within one rounding elementwise); a
+    canvas whose sides (34 × 42) are no multiple of 8 and C = 12."""
+    import chip_smoke
+
+    g, geo, shape = _bwd_problem(dtype, p)
+    got = _bwd_tile_mirror(g, *geo, shape)
+    assert not torch.isnan(got).any()
+    err, top, ok = chip_smoke.check_bwd_result(got, g, geo, shape)
+    assert ok and top > 0, (err, top)
+    # the tiles agree with the JAX vjp's semantics as the plain version
+    # states them, in f32
+    if dtype == torch.float32:
+        want = roi_align_windows_backward_reference(g, *geo, shape)
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chip_smoke_bwd_check_rejects_a_wrong_cell(dtype):
+    """``chip_smoke.check_bwd_result`` holds each cell: one cell moved by
+    a few percent of its value, or the shape or dtype changed, fails."""
+    import chip_smoke
+
+    g, geo, shape = _bwd_problem(dtype, 7)
+    good = _bwd_tile_mirror(g, *geo, shape)
+    assert chip_smoke.check_bwd_result(good, g, geo, shape)[2]
+    bad = good.clone()
+    at = tuple(int(i) for i in np.unravel_index(
+        int(good.float().abs().argmax()), shape))
+    bad[at] = bad[at] * 1.05
+    assert not chip_smoke.check_bwd_result(bad, g, geo, shape)[2]
+    assert not chip_smoke.check_bwd_result(good.double(), g, geo, shape)[2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [7, 14])
+def test_chip_smoke_roi_bwd_bound_counts_tile_overlaps(dtype, p):
+    """``chip_smoke._roi_bwd_bound``: the bound reads g, the weights and
+    the origins once and writes the canvas gradient once; the design floor
+    also writes the tasks and rounded weights once and reads each roi's g,
+    task and weights once per 8×8 output tile that its sub-window overlaps,
+    counted here cell by cell."""
+    import chip_smoke
+
+    g, (slab, y0, x0, wy, wx), shape = _bwd_problem(dtype, p, c=16)
+    r, _, win = wy.shape
+    hlo, nh = subwindow_extent(wy.to(dtype))
+    wlo, nw = subwindow_extent(wx.to(dtype))
+    pairs = 0
+    for i in range(r):
+        tiles = {((int(y0[i] + hlo[i]) + dy) // 8, (int(x0[i] + wlo[i]) + dx)
+                  // 8) for dy in range(int(nh[i])) for dx in range(int(nw[i]))}
+        pairs += len(tiles)
+    assert r < pairs < 16 * r
+    elem = g.element_size()
+    c = shape[-1]
+    inputs = 2 * r * p * win * 4 + 3 * r * 4
+    n_out = int(np.prod(shape)) * elem
+    per_roi = 16 + 2 * p * 32 * elem
+    want_bound = chip_smoke.bound(
+        r * p * p * c * elem + inputs + n_out,
+        sum(2.0 * p * c * (p * int(nw[i]) + int(nh[i]) * int(nw[i]))
+            for i in range(r)), dtype)
+    want_floor = (inputs + r * per_roi + pairs * (p * p * c * elem + per_roi)
+                  + n_out) / chip_smoke.HBM_BYTES_PER_S * 1e3
+    b_ms, b_by, floor = chip_smoke._roi_bwd_bound(g, slab, y0, x0, wy, wx,
+                                                  shape)
+    assert b_by == want_bound[1]
+    assert b_ms == pytest.approx(want_bound[0], rel=1e-12)
+    assert floor == pytest.approx(want_floor, rel=1e-12)
+    assert floor > b_ms
 
 
 @pytest.mark.parametrize("c,p", [(8, 7), (8, 14), (64, 7), (64, 14)])

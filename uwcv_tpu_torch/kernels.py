@@ -49,10 +49,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "uwcv_roi_align_windows_bf16": (_P,) * 9 + (_I,) * 6 + (_P,),
     },
     "roi_align_bwd": {
-        # g, slab, y0, x0, wy, wx, f32 canvas gradient, R, P, S, H, W, C,
-        # window, stream
-        "uwcv_roi_align_windows_bwd_f32": (_P,) * 7 + (_I,) * 7 + (_P,),
-        "uwcv_roi_align_windows_bwd_bf16": (_P,) * 7 + (_I,) * 7 + (_P,),
+        # g, slab, y0, x0, wy, wx, tasks and weights scratch, canvas
+        # gradient, R, P, S, H, W, C, window, stream
+        "uwcv_roi_align_windows_bwd_f32": (_P,) * 9 + (_I,) * 7 + (_P,),
+        "uwcv_roi_align_windows_bwd_bf16": (_P,) * 9 + (_I,) * 7 + (_P,),
     },
     "nms": {
         # boxes, valid, keep, mask scratch, P, N, threshold, stream

@@ -18,10 +18,11 @@ nonzero weights sit, not the result.
 Pooling is differentiable with respect to the canvas (``PoolWindows``, the
 port of the ``custom_vjp`` ``pool_windows``): the backward
 ``roi_align_windows_backward`` (the CUDA kernel ``csrc/roi_align_bwd.cu``,
-which replaces the XLA scatter-add ``_pool_windows_bwd``) adds each roi's
-back-interpolated window cotangent into a zero canvas, and ``level_canvas``
-passes that gradient back to the levels through plain autograd.  Rois
-carry no gradient, as in the JAX package.
+which replaces the XLA scatter-add ``_pool_windows_bwd``) sums the rois'
+back-interpolated window cotangents tile by tile of the canvas gradient,
+each tile written once, and ``level_canvas`` passes that gradient back to
+the levels through plain autograd.  Rois carry no gradient, as in the JAX
+package.
 
 Public functions keep the JAX package's NHWC layout.
 """
@@ -272,9 +273,11 @@ def roi_align_windows_backward(g, slab, y0, x0, wy, wx,
     wy/wx [R,P,win] f32 → the canvas gradient [S,Hmax,Wmax,C] in g's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise): one block per (roi, 16-channel tile) contracts in f32 and adds
-    into an f32 scratch canvas with atomics (rois overlap), which is then
-    cast once to g's dtype."""
+    raise): a task pass finds each roi's nonzero sub-window, then a tile
+    kernel sums, for each 8×8-cell tile of the canvas gradient, the rois
+    that overlap it in f32 and in roi order and writes the tile once in g's
+    dtype (zeros where no roi reaches), so two calls give bit-identical
+    results."""
     if g.device.type == "cpu":
         return roi_align_windows_backward_reference(g, slab, y0, x0, wy, wx,
                                                     canvas_shape)
@@ -299,16 +302,24 @@ def roi_align_windows_backward(g, slab, y0, x0, wy, wx,
         + [t.float().contiguous() for t in (wy, wx)]
     if any(t.device != g.device for t in args):
         raise ValueError("all inputs must be on the gradient's device")
-    scratch = torch.zeros((s, h, w, c), dtype=torch.float32, device=g.device)
-    if r:
-        lib = kernels.library("roi_align_bwd")
-        fn = (lib.uwcv_roi_align_windows_bwd_f32 if g.dtype == torch.float32
-              else lib.uwcv_roi_align_windows_bwd_bf16)
-        rc = fn(*[t.data_ptr() for t in args], scratch.data_ptr(), r, p, s,
-                h, w, c, win, kernels.stream_ptr(g.device))
-        kernels.check(rc, "roi_align_windows_backward")
-        roi_align_windows_backward.launches += 1
-    return scratch if g.dtype == torch.float32 else scratch.to(g.dtype)
+    if r == 0:
+        return g.new_zeros((s, h, w, c))
+    out = torch.empty((s, h, w, c), dtype=g.dtype, device=g.device)
+    # per roi, written by the task pass: a 16-byte task (its sub-window)
+    # and its weights rounded to g's dtype, shifted to the sub-window; one
+    # more row holds the tile kernel's work counters
+    tasks = torch.empty((r + 1, 4), dtype=torch.int32, device=g.device)
+    weights = torch.empty((r, 2, p, MAX_WINDOW), dtype=g.dtype,
+                          device=g.device)
+    lib = kernels.library("roi_align_bwd")
+    fn = (lib.uwcv_roi_align_windows_bwd_f32 if g.dtype == torch.float32
+          else lib.uwcv_roi_align_windows_bwd_bf16)
+    rc = fn(*[t.data_ptr() for t in args], tasks.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), r, p, s, h, w, c, win,
+            kernels.stream_ptr(g.device))
+    kernels.check(rc, "roi_align_windows_backward")
+    roi_align_windows_backward.launches += 1
+    return out
 
 
 roi_align_windows_backward.launches = 0
