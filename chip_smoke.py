@@ -53,7 +53,26 @@ Phases (any failure raises and exits non-zero):
    ms/step, img/s, a CUDA-event split (forward / backward / optimizer),
    peak memory, the device's idle share and the device time of the ops on
    the pooler's canvas;
-10. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+10. pth import: R101-FPN-256 (the reference's architecture) at the
+   default config in bf16; seeded weights written as a Detectron2-named
+   ``.pth`` (``detectron2_state_dict``: FPN, RPN and heads, BN with running
+   stats, ``fc1`` over CHW) and read by ``load_predictor``; every leaf of
+   the R101 tree must hold the checkpoint's value rounded to bf16 (the
+   count is printed against the tree's, a missed leaf is named); the
+   imported params written to an ``.npz`` and read by ``load_predictor``
+   give outputs bit-identical to the ``.pth`` predictor's on a batch of 8
+   gray 1024×1280 images; both kernels twice a batch (counts zeroed just
+   before);
+11. hpo: ``synth`` writes 8 train and 4 test images at 1024×1280, then
+   ``run_reference_hpo`` at the default config (R50-FPN-256, bf16 compute,
+   f32 masters, 800×800, batch 2), 3 trials of 20 steps (the CLI's default
+   is 100), space v1; every trial COMPLETE with a finite segm AP in [0, 1];
+   launch counts zeroed just before equal the sums over the trials
+   (RoIAlign 2 a step + 2 an eval batch, its backward 2 a step, NMS 1 a
+   step + 2 an eval batch); seconds per trial, training ms/step, eval
+   seconds, eval predictors built, peak memory; ``save_gt_visualizations``
+   over 2 train images, whose PNGs decode to the images' shape;
+12. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
    ``roi_align_windows_backward``, ``nms_greedy``) of the
    ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
@@ -71,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import hashlib
 import json
 import os
 import shutil
@@ -866,6 +886,28 @@ def check_eval(dev) -> dict:
     return rec
 
 
+def _launch_counts() -> dict:
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import (
+        roi_align_windows,
+        roi_align_windows_backward,
+    )
+
+    return {f.__name__: f.launches for f in (
+        roi_align_windows, roi_align_windows_backward, nms_greedy)}
+
+
+def _zero_launch_counts() -> None:
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import (
+        roi_align_windows,
+        roi_align_windows_backward,
+    )
+
+    for f in (roi_align_windows, roi_align_windows_backward, nms_greedy):
+        f.launches = 0
+
+
 def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     """R50-FPN-256 bf16 with seeded weights over ``n_images`` seeded
     1024×1280 16-bit TIFFs through ``run_batch_inference`` with the
@@ -874,8 +916,6 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
     from uwcv_tpu_torch.engine.predictor import Predictor
-    from uwcv_tpu_torch.ops.nms import nms_greedy
-    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
     from uwcv_tpu_torch.utils.device import HostStages
 
     image_dir = os.path.join(WORK, "folder_tiff")
@@ -890,21 +930,20 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     cfg.output_dir = os.path.join(WORK, "folder_out")
     pred = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
     pred.stages = HostStages()
-    roi_align_windows.launches = 0
-    nms_greedy.launches = 0
+    _zero_launch_counts()
     t0 = time.perf_counter()
     result = run_batch_inference(cfg, pred, image_dir=image_dir,
                                  batch_size=batch, with_measurements=True,
                                  with_plots=False, progress=lambda *_: None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"roi_align_windows": roi_align_windows.launches,
-                "nms_greedy": nms_greedy.launches}
+    launches = _launch_counts()
     n_batches = -(-n_images // batch)
-    for name, n in launches.items():
-        if n != 2 * n_batches:
-            raise RuntimeError(f"folder phase: {name} launched {n} times, "
-                               f"expected 2 per batch × {n_batches}")
+    want = {"roi_align_windows": 2 * n_batches,
+            "roi_align_windows_backward": 0, "nms_greedy": 2 * n_batches}
+    if launches != want:
+        raise RuntimeError(f"folder phase launches {launches}, expected "
+                           f"{want} (2 a batch × {n_batches})")
     rows = check_rows_decode(result)
     stages = {k: v * 1e3 for k, v in pred.stages.seconds.items()}
     stage_sum = sum(stages.values())
@@ -955,11 +994,88 @@ def seeded_flax_params(model_cfg, seed: int):
     return out
 
 
+_D2_MODULES = {
+    "backbone/stem_conv": "backbone.bottom_up.stem.conv1",
+    "backbone/stem_bn": "backbone.bottom_up.stem.conv1.norm",
+    "rpn_head/rpn_conv": "proposal_generator.rpn_head.conv",
+    "rpn_head/objectness": "proposal_generator.rpn_head.objectness_logits",
+    "rpn_head/anchor_deltas": "proposal_generator.rpn_head.anchor_deltas",
+    "box_head/fc1": "roi_heads.box_head.fc1",
+    "box_head/fc2": "roi_heads.box_head.fc2",
+    "box_head/cls_score": "roi_heads.box_predictor.cls_score",
+    "box_head/bbox_pred": "roi_heads.box_predictor.bbox_pred",
+}
+
+
+def _d2_module(mod: str) -> str:
+    """A Flax module path → its module name in a Detectron2 checkpoint."""
+    import re
+
+    m = re.fullmatch(r"backbone/res(\d)_block(\d+)/(\w+)", mod)
+    if m:
+        stage, block, part = m.groups()
+        base = f"backbone.bottom_up.res{stage}.{block}."
+        return base + {"shortcut_conv": "shortcut",
+                       "shortcut_bn": "shortcut.norm"}.get(
+            part, part if part.startswith("conv") else f"conv{part[2:]}.norm")
+    m = re.fullmatch(r"fpn/(lateral_c|output_p)(\d)", mod)
+    if m:
+        return f"backbone.fpn_{m.group(1)[:-2]}{m.group(2)}"
+    if mod.startswith("mask_head/"):
+        return "roi_heads.mask_head." + mod.split("/", 1)[1]
+    return _D2_MODULES[mod]
+
+
+def detectron2_state_dict(flat: dict, rng, pool: int = 7):
+    """Flat Flax params → a checkpoint in Detectron2's names and layouts,
+    as ``torch.save`` would write a trained model's: ``{"model": state
+    dict, ...}`` with convs OIHW, linears [out, in], ``fc1`` over the
+    CHW-flattened pool, the deconv IOHW and unflipped, and every FrozenBN
+    as a BatchNorm (weight, bias, running_mean, running_var drawn from
+    ``rng``).  → (the checkpoint, the flat params it imports to: ``flat``
+    with each FrozenBN leaf folded from its drawn stats, eps 1e-5)."""
+    sd, expected = {}, dict(flat)
+    for key, a in flat.items():
+        parts = key.split("/")
+        mod, leaf = "/".join(parts[1:-1]), parts[-1]
+        name = _d2_module(mod)
+        if leaf == "frozen_bn_bias":
+            continue                      # written with its scale
+        if leaf == "frozen_bn_scale":
+            n = a.shape[0]
+            gamma = rng.uniform(0.9, 1.1, n).astype(np.float32)
+            beta = rng.normal(0.0, 0.01, n).astype(np.float32)
+            mean = rng.normal(0.0, 0.01, n).astype(np.float32)
+            var = rng.uniform(0.9, 1.1, n).astype(np.float32)
+            scale = gamma / np.sqrt(var + 1e-5)
+            expected[key] = scale.astype(np.float32)
+            expected[key[:-len("scale")] + "bias"] = (
+                beta - mean * scale).astype(np.float32)
+            for field, v in (("weight", gamma), ("bias", beta),
+                             ("running_mean", mean), ("running_var", var)):
+                sd[f"{name}.{field}"] = torch.from_numpy(v)
+            continue
+        if leaf == "kernel" and mod == "mask_head/deconv":
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1)           # → IOHW
+        elif leaf == "kernel" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)                       # HWIO → OIHW
+        elif leaf == "kernel" and mod == "box_head/fc1":
+            out = a.shape[1]
+            a = a.T.reshape(out, pool, pool, -1).transpose(0, 3, 1, 2) \
+                .reshape(out, -1)                             # HWC → CHW
+        elif leaf == "kernel":
+            a = a.T
+        field = "weight" if leaf == "kernel" else "bias"
+        sd[f"{name}.{field}"] = torch.from_numpy(
+            np.ascontiguousarray(a, np.float32))
+    sd["pixel_mean"] = torch.tensor([[[103.53]], [[116.28]], [[123.675]]])
+    sd["pixel_std"] = torch.ones(3, 1, 1)
+    return {"model": sd, "__author__": "seeded", "iteration": 0}, expected
+
+
 def run_full_width(dev):
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.engine.predictor import Predictor
-    from uwcv_tpu_torch.ops.nms import nms_greedy
-    from uwcv_tpu_torch.ops.roi_align import roi_align_windows
 
     cfg = Config()                       # R50-FPN-256, bf16, 1024×1344 pad
     cfg.model.roi_score_thresh_test = 0.0
@@ -971,8 +1087,7 @@ def run_full_width(dev):
     warmup, timed = 2, 5
 
     torch.cuda.reset_peak_memory_stats()
-    roi_align_windows.launches = 0
-    nms_greedy.launches = 0
+    _zero_launch_counts()
     for _ in range(warmup):
         pred.predict_batch(images)
     torch.cuda.synchronize()
@@ -996,8 +1111,7 @@ def run_full_width(dev):
     insts_s = pred.to_instances(out + tuple(unmap))
     host["to_instances (sync, D2H, unpack)"] = time.perf_counter() - t
     marks, pred.model.marks = pred.model.marks, None
-    launches = {"roi_align_windows": roi_align_windows.launches,
-                "nms_greedy": nms_greedy.launches}
+    launches = _launch_counts()
     n_batches = warmup + timed + 1
     peak = torch.cuda.max_memory_allocated()
 
@@ -1020,6 +1134,8 @@ def run_full_width(dev):
     if launches["nms_greedy"] != 2 * n_batches:
         raise RuntimeError(f"NMS kernel launches {launches} != 2 per batch "
                            f"(RPN 5·B problems + detection B problems)")
+    if launches["roi_align_windows_backward"]:
+        raise RuntimeError(f"inference launched the backward: {launches}")
     for inst in insts + insts_s:
         if not (np.isfinite(inst.boxes).all() and np.isfinite(inst.scores).all()):
             raise RuntimeError("non-finite detections")
@@ -1116,11 +1232,6 @@ def run_train_full_width(dev) -> dict:
     from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
     from uwcv_tpu_torch.engine.predictor import load_predictor
     from uwcv_tpu_torch.engine.trainer import Trainer
-    from uwcv_tpu_torch.ops.nms import nms_greedy
-    from uwcv_tpu_torch.ops.roi_align import (
-        roi_align_windows,
-        roi_align_windows_backward,
-    )
 
     cfg = Config()
     out = os.path.join(WORK, "train_full")
@@ -1143,9 +1254,7 @@ def run_train_full_width(dev) -> dict:
     fit = lambda n: trainer.fit(batches, max_iter=trainer.step + n,
                                 log_fn=lines.append, device_dataset=dd)
     torch.cuda.reset_peak_memory_stats()
-    roi_align_windows.launches = 0
-    roi_align_windows_backward.launches = 0
-    nms_greedy.launches = 0
+    _zero_launch_counts()
     fit(TRAIN_WARMUP)
     trainer.marks = []
     torch.cuda.synchronize()
@@ -1155,10 +1264,7 @@ def run_train_full_width(dev) -> dict:
     marks, trainer.marks = trainer.marks, None
     trainer.cfg.solver.log_period = 1
     fit(TRAIN_TIMED)
-    launches = {"roi_align_windows": roi_align_windows.launches,
-                "roi_align_windows_backward":
-                    roi_align_windows_backward.launches,
-                "nms_greedy": nms_greedy.launches}
+    launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     with open(os.path.join(out, "metrics.json")) as f:
         metrics = {m["iteration"]: m for m in map(json.loads, f)}
@@ -1248,6 +1354,217 @@ def run_train_full_width(dev) -> dict:
             "losses_first_last": [first["total_loss"], last["total_loss"]]}
 
 
+# ---------------------------------------------------------------- pth, hpo
+
+def run_pth_import(dev) -> dict:
+    """R101-FPN (the reference's architecture) at the default config in
+    bf16: seeded weights written as a Detectron2-named ``.pth`` (FPN, RPN
+    and heads included, BN with running stats, ``fc1`` over CHW) and read
+    by ``load_predictor``.  Every leaf of the R101 tree must hold the
+    checkpoint's value (rounded to bf16); the imported params, written to
+    an ``.npz`` and read by ``load_predictor`` again, must give outputs
+    bit-identical to the ``.pth`` predictor's on one batch of 8 gray
+    1024×1280 images.  Launch counts are zeroed just before the two
+    batches (each kernel twice a batch)."""
+    import copy
+
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.checkpoint import save_params_npz
+    from uwcv_tpu_torch.engine.predictor import load_predictor
+    from uwcv_tpu_torch.weights import flax_param_shapes, params_to_flax
+
+    cfg = Config()
+    cfg.model.depth = 101
+    work = os.path.join(WORK, "pth_import")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    flat = seeded_flax_params(cfg.model, 0)
+    rng = np.random.default_rng(7)
+    for k, a in flat.items():
+        # biases unlike any initialisation, so a missed one shows
+        if k.endswith("/bias"):
+            flat[k] = a + rng.normal(0.0, 0.01, a.shape).astype(np.float32)
+    ckpt, expected = detectron2_state_dict(flat, rng)
+    pth = os.path.join(work, "model_final.pth")
+    torch.save(ckpt, pth)
+    n_leaves = len(flax_param_shapes(cfg.model))
+    t0 = time.perf_counter()
+    pred = load_predictor(copy.deepcopy(cfg), pth, device=dev)
+    load_s = time.perf_counter() - t0
+    got = params_to_flax(pred.model)
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    missed = sorted(k for k in expected
+                    if not np.array_equal(got[k], bf16(expected[k])))
+    matched = len(expected) - len(missed)
+    log(f"  R101-FPN-256 bf16: {matched} of {n_leaves} leaves of the R101 "
+        f"tree hold the Detectron2 .pth's values ({len(ckpt['model'])} "
+        f"state-dict entries, {os.path.getsize(pth) / 1e6:.1f} MB; "
+        f"load_predictor {load_s:.1f} s)")
+    if missed or len(expected) != n_leaves:
+        raise RuntimeError(f"pth import: {len(missed)} leaves unmatched: "
+                           f"{missed[:20]}")
+    npz = save_params_npz(os.path.join(work, "imported.npz"), got)
+    pred_npz = load_predictor(copy.deepcopy(cfg), npz, device=dev)
+    rng = np.random.default_rng(3)
+    images = [np.repeat(rng.integers(0, 256, (1024, 1280, 1), dtype=np.uint8),
+                        3, axis=-1) for _ in range(8)]
+    _zero_launch_counts()
+    outs = [p.predict_batch(images) for p in (pred, pred_npz)]
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    for a, b in zip(*outs):
+        for field in ("boxes", "scores", "classes", "valid", "masks"):
+            x, y = getattr(a, field), getattr(b, field)
+            if not np.array_equal(x, y):
+                raise RuntimeError(f"pth import: {field} of the .pth and the "
+                                   f".npz predictors differ")
+        if not (np.isfinite(a.boxes).all() and np.isfinite(a.scores).all()):
+            raise RuntimeError("pth import: non-finite detections")
+    want = {"roi_align_windows": 4, "roi_align_windows_backward": 0,
+            "nms_greedy": 4}
+    valid = [int(i.valid.sum()) for i in outs[0]]
+    log(f"  .pth and .npz predictors bit-identical on a batch of 8 gray "
+        f"1024×1280 images (valid detections per image {valid}); launches "
+        f"over the two batches: {launches}")
+    if launches != want:
+        raise RuntimeError(f"pth import launches {launches}, expected {want}")
+    return {"leaves_matched": matched, "leaves": n_leaves,
+            "state_dict_entries": len(ckpt["model"]), "load_s": load_s,
+            "valid_per_image": valid, "launches": launches}
+
+
+HPO_TRIALS, HPO_ITERS = 3, 20       # the CLI's default is 8 trials × 100
+
+
+def run_hpo(dev) -> dict:
+    """``synth`` writes 8 train and 4 test images at 1024×1280; then
+    ``run_reference_hpo`` at the default config (R50-FPN-256, bf16 compute,
+    f32 masters, 800×800, batch 2) runs ``HPO_TRIALS`` trials of
+    ``HPO_ITERS`` steps, space v1, each scored by segm AP on the 4 test
+    images.  Every trial must complete with a finite value in [0, 1];
+    launch counts, zeroed just before, must be the sums over the trials
+    (RoIAlign and its backward twice a step, NMS once; RoIAlign and NMS
+    twice an eval batch).  Every trial's eval must fill a predictor
+    through ``Predictor.set_params`` (watched here) with its own trained
+    weights, and the last one filled must hold the last trial's weights
+    rounded to bf16.  Then ``save_gt_visualizations`` over 2 train
+    images, whose PNGs must decode to the images' shape."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.data.catalog import DatasetCatalog
+    from uwcv_tpu_torch.data.classes import ClassRegistry
+    from uwcv_tpu_torch.data.imageio import decode_png
+    from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
+    from uwcv_tpu_torch.data.synthetic import generate_dataset
+    from uwcv_tpu_torch.engine.batch_inference import save_gt_visualizations
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.hpo.study import run_reference_hpo
+    from uwcv_tpu_torch.weights import params_to_flax
+
+    root = os.path.join(WORK, "hpo_data")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    n_train, n_test, size = 8, 4, (1024, 1280)
+    paths = generate_dataset(root, num_train=n_train, num_test=n_test,
+                             num_inference=0, image_size=size, seed=0)
+    synth_s = time.perf_counter() - t0
+    cfg = Config()
+    cfg.output_dir = os.path.join(WORK, "hpo_out")
+    shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    cfg.data.classes_csv = paths["classes_csv"]
+    cfg.data.train_dataset = "chip_smoke_hpo_train"
+    cfg.data.test_dataset = "chip_smoke_hpo_test"
+    for name in (cfg.data.train_dataset, cfg.data.test_dataset):
+        DatasetCatalog.remove(name)
+    # every params dict the sweep swaps into an eval predictor: a digest
+    # of one leaf of each (trials start from inits of their own seeds, so
+    # every leaf differs between them), and the last predictor and params
+    fills, last = [], {}
+    set_params = Predictor.set_params
+
+    def watched(self, params):
+        fills.append((id(self), hashlib.sha256(np.ascontiguousarray(
+            params["params/box_head/fc2/kernel"])).hexdigest()))
+        last.update(pred=self, params=params)
+        set_params(self, params)
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    Predictor.set_params = watched
+    t0 = time.perf_counter()
+    try:
+        res = run_reference_hpo(cfg, n_trials=HPO_TRIALS,
+                                data_dir=paths["Train"], max_iter=HPO_ITERS,
+                                seed=0, space="v1", device=dev)
+    finally:
+        Predictor.set_params = set_params
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    trials = res["trials"]
+    for t in trials:
+        a = t["user_attrs"]
+        log(f"  trial {t['number']} {t['state']}: segm AP {t['value']}, "
+            f"params {t['params']}; set-up {a.get('setup_s', 0):.2f} s, "
+            f"{a.get('steps', 0)} steps {a.get('train_s', 0):.2f} s "
+            f"({a.get('train_s', 0) / max(a.get('steps', 1), 1) * 1e3:.1f} "
+            f"ms/step, host clock, first step included), eval "
+            f"{a.get('eval_s', 0):.2f} s" + (f"; error {a['error']}"
+                                            if "error" in a else ""))
+    bad = [t for t in trials if t["state"] != "COMPLETE"]
+    if bad or len(trials) != HPO_TRIALS:
+        raise RuntimeError(f"hpo: trials not complete: {bad}")
+    if res["objective"] != "segm_mAP":
+        raise RuntimeError(f"hpo objective {res['objective']}")
+    for t in trials:
+        if not (np.isfinite(t["value"]) and 0.0 <= t["value"] <= 1.0):
+            raise RuntimeError(f"hpo trial {t['number']} value {t['value']}")
+    eval_batches = HPO_TRIALS * 1            # 4 test images, one batch
+    steps = HPO_TRIALS * HPO_ITERS
+    want = {"roi_align_windows": 2 * steps + 2 * eval_batches,
+            "roi_align_windows_backward": 2 * steps,
+            "nms_greedy": steps + 2 * eval_batches}
+    log(f"  hpo: {HPO_TRIALS} trials × {HPO_ITERS} steps in {wall:.1f} s "
+        f"(synth {synth_s:.1f} s before); {res['eval_predictors']} eval "
+        f"predictors built; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    if launches != want:
+        raise RuntimeError(f"hpo launches {launches}, expected {want}")
+    # each trial trains from its own init, so each eval needs new weights
+    if len(fills) != HPO_TRIALS or len({h for _, h in fills}) != HPO_TRIALS:
+        raise RuntimeError(f"hpo: {len(fills)} eval fills, "
+                           f"{len({h for _, h in fills})} distinct weights; "
+                           f"expected {HPO_TRIALS} of each")
+    if len({i for i, _ in fills}) != res["eval_predictors"]:
+        raise RuntimeError("hpo: eval predictors filled != built")
+    held = params_to_flax(last["pred"].model)
+    bf16 = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    stale = sorted(k for k, v in last["params"].items()
+                   if not np.array_equal(held[k], bf16(np.asarray(v))))
+    if stale or sorted(held) != sorted(last["params"]):
+        raise RuntimeError(f"hpo: the last eval predictor does not hold the "
+                           f"last trial's weights: {stale[:10]}")
+    log(f"  hpo: {len(fills)} eval fills with {len(fills)} distinct weights "
+        f"into {res['eval_predictors']} predictors; the last holds the last "
+        f"trial's {len(held)} leaves rounded to bf16")
+    gallery = save_gt_visualizations(
+        get_superannotate_dicts(paths["Train"]), ClassRegistry(),
+        os.path.join(WORK, "hpo_gt"), max_images=2)
+    for p in gallery:
+        with open(p, "rb") as f:
+            shape = decode_png(f.read()).pixels.shape
+        if shape != size + (3,):
+            raise RuntimeError(f"gt gallery {p}: shape {shape}")
+    log(f"  gt gallery: {len(gallery)} PNGs decode to {size + (3,)}")
+    for name in (cfg.data.train_dataset, cfg.data.test_dataset):
+        DatasetCatalog.remove(name)
+    return {"trials": trials, "best_value": res["best_value"],
+            "best_params": res["best_params"], "wall_s": wall,
+            "synth_s": synth_s, "eval_predictors": res["eval_predictors"],
+            "peak_gib": peak / 2**30, "launches": launches,
+            "gallery": len(gallery)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -1313,23 +1630,32 @@ def main(argv=None) -> int:
     log("[train] full width through Trainer.fit")
     train = run_train_full_width(dev)
 
+    log("[pth import] R101-FPN from a Detectron2-named .pth")
+    pth = run_pth_import(dev)
+
+    log("[hpo] synth, then run_reference_hpo at the default config")
+    hpo = run_hpo(dev)
+
     against = {}
     if args.against:
         log(f"[against] kernel wrappers of {args.against} against these")
         against = compare_against(args.against, roi_args, nms_calls,
                                   bwd_args)
 
+    phases = {"full width": launches, "folder": folder["launches"],
+              "train": train["launches"], "pth import": pth["launches"],
+              "hpo": hpo["launches"]}
+
+    def counts(name):
+        by_phase = {k: v.get(name, 0) for k, v in phases.items()}
+        return {"launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase}
+
     records = [
         {"name": "roi_align_windows", "route": "cuda",
          "source": "uwcv_tpu_torch/csrc/roi_align.cu",
          "replaces": "uwcv_tpu/ops/pallas/roi_align_kernel.py:89",
-         "launches": (launches["roi_align_windows"]
-                      + folder["launches"]["roi_align_windows"]
-                      + train["launches"]["roi_align_windows"]),
-         "launches_by_phase": {
-             "full width": launches["roi_align_windows"],
-             "folder": folder["launches"]["roi_align_windows"],
-             "train": train["launches"]["roi_align_windows"]},
+         **counts("roi_align_windows"),
          "max_abs_err": roi_timed["max_abs_err"], "ms": roi_timed["ms"],
          "plain_ms": roi_timed["plain_ms"], "bound_ms": roi_timed["bound_ms"],
          "bound_by": roi_timed["bound_by"], "library_ms": None,
@@ -1338,11 +1664,7 @@ def main(argv=None) -> int:
         {"name": "nms_greedy", "route": "cuda",
          "source": "uwcv_tpu_torch/csrc/nms.cu",
          "replaces": "uwcv_tpu/ops/pallas/nms_kernel.py:64",
-         "launches": (launches["nms_greedy"] + folder["launches"]["nms_greedy"]
-                      + train["launches"]["nms_greedy"]),
-         "launches_by_phase": {"full width": launches["nms_greedy"],
-                               "folder": folder["launches"]["nms_greedy"],
-                               "train": train["launches"]["nms_greedy"]},
+         **counts("nms_greedy"),
          "max_abs_err": nms_rec["max_abs_err"], "ms": nms_rec["ms"],
          "plain_ms": nms_rec["plain_ms"], "bound_ms": nms_rec["bound_ms"],
          "bound_by": nms_rec["bound_by"], "library_ms": None,
@@ -1350,9 +1672,7 @@ def main(argv=None) -> int:
         {"name": "roi_align_windows_backward", "route": "cuda",
          "source": "uwcv_tpu_torch/csrc/roi_align_bwd.cu",
          "replaces": "uwcv_tpu/ops/roi_align.py:405",
-         "launches": train["launches"]["roi_align_windows_backward"],
-         "launches_by_phase": {
-             "train": train["launches"]["roi_align_windows_backward"]},
+         **counts("roi_align_windows_backward"),
          "max_abs_err": bwd_timed["max_abs_err"], "ms": bwd_timed["ms"],
          "plain_ms": bwd_timed["plain_ms"], "bound_ms": bwd_timed["bound_ms"],
          "bound_by": bwd_timed["bound_by"], "library_ms": None,
@@ -1367,7 +1687,8 @@ def main(argv=None) -> int:
                                  if k.startswith("roi_align_windows_backward")}
     log(json.dumps({"folder": folder, "folder_golden": folder_golden,
                     "eval": gate_eval, "train_golden": train_golden,
-                    "train": train}))
+                    "train": train, "pth_import": pth, "hpo": hpo},
+                   default=str))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -338,3 +338,146 @@ def test_start_pull_copies_into_pinned_memory(dev):
     for a, b in zip(pred.to_instances(pulled), pred.to_instances(out)):
         np.testing.assert_array_equal(a.masks, b.masks)
         np.testing.assert_array_equal(a.boxes, b.boxes)
+
+
+def _small_cfg():
+    from uwcv_tpu_torch.config import Config
+
+    cfg = Config()
+    m = cfg.model
+    m.depth, m.fpn_channels, m.box_fc_dim = 26, 64, 64
+    m.rpn_pre_nms_topk_train, m.rpn_post_nms_topk_train = 200, 100
+    m.rpn_pre_nms_topk_test, m.rpn_post_nms_topk_test = 100, 50
+    m.detections_per_image = 10
+    cfg.input.train_size = (128, 128)
+    cfg.input.test_short_edge = cfg.input.test_max_size = 128
+    cfg.input.pad_size_test = (128, 128)
+    return cfg
+
+
+def test_pth_import_and_set_params_on_card(dev, tmp_path):
+    """A Detectron2-named ``.pth`` onto a bf16 predictor on the card: every
+    leaf holds the checkpoint's value rounded to bf16; ``set_params`` of
+    the same params into another predictor keeps its module, dtype and
+    device and gives bit-equal outputs."""
+    import numpy as np
+
+    from chip_smoke import detectron2_state_dict, seeded_flax_params
+    from uwcv_tpu_torch.engine.predictor import Predictor, load_predictor
+    from uwcv_tpu_torch.weights import params_to_flax
+
+    cfg = _small_cfg()
+    ckpt, want = detectron2_state_dict(seeded_flax_params(cfg.model, 0),
+                                       np.random.default_rng(0))
+    path = str(tmp_path / "model.pth")
+    torch.save(ckpt, path)
+    pred = load_predictor(cfg, path, device=dev)
+    got = params_to_flax(pred.model)
+    bf16 = lambda a: torch.from_numpy(a).bfloat16().float().numpy()
+    assert all(np.array_equal(got[k], bf16(want[k])) for k in want)
+    other = Predictor(cfg, None, device=dev)
+    model = other.model
+    other.set_params(want)
+    assert other.model is model
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    assert {p.device.type for p in model.parameters()} == {"cuda"}
+    rng = np.random.default_rng(1)
+    images = [rng.integers(0, 256, (120, 100, 3), dtype=np.uint8)
+              for _ in range(2)]
+    for a, b in zip(pred.predict_batch(images), other.predict_batch(images)):
+        np.testing.assert_array_equal(a.scores, b.scores)
+        np.testing.assert_array_equal(a.masks, b.masks)
+
+
+def test_one_trial_hpo_on_card_launches_every_kernel(dev, tmp_path):
+    """``run_reference_hpo``, one trial of 3 steps at small width on the
+    card: complete, segm mAP objective, and the launch counts of the
+    formula (RoIAlign 2 a step + 2 an eval batch, its backward 2 a step,
+    NMS 1 a step + 2 an eval batch)."""
+    from uwcv_tpu_torch.data.catalog import DatasetCatalog
+    from uwcv_tpu_torch.data.synthetic import generate_dataset
+    from uwcv_tpu_torch.hpo.study import run_reference_hpo
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+
+    paths = generate_dataset(str(tmp_path / "data"), num_train=2,
+                             num_test=2, num_inference=0,
+                             image_size=(128, 128), seed=1)
+    cfg = _small_cfg()
+    cfg.output_dir = str(tmp_path / "out")
+    cfg.data.classes_csv = paths["classes_csv"]
+    cfg.data.train_dataset = "_cuda_hpo_train"
+    cfg.data.test_dataset = "_cuda_hpo_test"
+    fns = (roi_align_windows, roi_align_windows_backward, nms_greedy)
+    before = [f.launches for f in fns]
+    try:
+        res = run_reference_hpo(cfg, n_trials=1, max_iter=3,
+                                data_dir=paths["Train"], device=dev)
+    finally:
+        DatasetCatalog.remove("_cuda_hpo_train")
+        DatasetCatalog.remove("_cuda_hpo_test")
+    assert res["trials"][0]["state"] == "COMPLETE", res
+    assert res["objective"] == "segm_mAP"
+    assert 0.0 <= res["best_value"] <= 1.0
+    assert [f.launches - b for f, b in zip(fns, before)] == [
+        2 * 3 + 2, 2 * 3, 3 + 2]
+
+
+@pytest.fixture
+def second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_run_on_the_second_card(second_card):
+    """With cuda:0 the thread's current device, each wrapper launches on
+    the card its tensors lie on (cuda:1) and agrees with its plain version
+    there: a launch on the current device would read cuda:1 memory through
+    cuda:0's stream."""
+    from chip_smoke import check_bwd_result
+
+    dev = second_card
+    with torch.cuda.device(0):
+        args = _pool_args(dev, torch.float32, 64, 7, 64)
+        got = roi_align_windows(*args)
+        want = roi_align_windows_reference(*args)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        g, *geo, shape = _bwd_args(dev, torch.float32, 64, 7, 64)
+        got = roi_align_windows_backward(g, *geo, shape)
+        err, top, ok = check_bwd_result(got, g, tuple(geo), shape)
+        assert ok, (err, top)
+        gen = torch.Generator().manual_seed(2)
+        boxes = _clustered(gen, 8, 1000).to(dev)
+        valid = (torch.rand(8, 1000, generator=gen) < 0.9).to(dev)
+        torch.testing.assert_close(nms_greedy(boxes, valid, 0.7),
+                                   nms_greedy_reference(boxes, valid, 0.7),
+                                   rtol=0, atol=0)
+    torch.cuda.synchronize(dev)
+
+
+def test_hpo_trials_run_one_a_card(second_card, tmp_path):
+    """``run_reference_hpo`` over every card, one trial on each, from the
+    thread pool: every trial completes, and each card's eval predictor is
+    its own."""
+    from uwcv_tpu_torch.data.catalog import DatasetCatalog
+    from uwcv_tpu_torch.data.synthetic import generate_dataset
+    from uwcv_tpu_torch.hpo.study import run_reference_hpo
+
+    n = torch.cuda.device_count()
+    paths = generate_dataset(str(tmp_path / "data"), num_train=2,
+                             num_test=2, num_inference=0,
+                             image_size=(128, 128), seed=1)
+    cfg = _small_cfg()
+    cfg.output_dir = str(tmp_path / "out")
+    cfg.data.classes_csv = paths["classes_csv"]
+    cfg.data.train_dataset = "_cuda_hpo_cards_train"
+    cfg.data.test_dataset = "_cuda_hpo_cards_test"
+    try:
+        res = run_reference_hpo(cfg, n_trials=n, max_iter=3, n_parallel=n,
+                                data_dir=paths["Train"], device="cuda")
+    finally:
+        DatasetCatalog.remove("_cuda_hpo_cards_train")
+        DatasetCatalog.remove("_cuda_hpo_cards_test")
+    assert [t["state"] for t in res["trials"]] == ["COMPLETE"] * n, res
+    assert res["objective"] == "segm_mAP"
+    assert res["eval_predictors"] == n

@@ -234,6 +234,87 @@ except ImportError as e:
         assert (tmp_path / "out" / name).exists()
 
 
+def test_synth_gallery_and_pth_import_run_without_pil(tmp_path):
+    """In an interpreter where PIL, pandas, matplotlib and JAX cannot be
+    imported: ``synth`` writes a dataset whose PNGs decode, the
+    ground-truth gallery writes its PNGs, and a ``.pth`` loads into a
+    predictor."""
+    code = f"""
+import sys
+for m in {BLOCKED!r}:
+    sys.modules[m] = None
+sys.path.insert(0, {REPO!r})
+import numpy as np, torch
+from chip_smoke import detectron2_state_dict
+from uwcv_tpu_torch.cli.main import main
+from uwcv_tpu_torch.data.classes import ClassRegistry
+from uwcv_tpu_torch.data.imageio import decode_png
+from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
+from uwcv_tpu_torch.engine.batch_inference import save_gt_visualizations
+from uwcv_tpu_torch.engine.predictor import load_predictor
+from uwcv_tpu_torch.weights import load_npz, params_to_flax
+root = {str(tmp_path / "data")!r}
+main(["synth", "--root", root, "--train", "2", "--test", "0", "--infer",
+      "0", "--size", "48"])
+out = save_gt_visualizations(get_superannotate_dicts(root + "/Train"),
+                             ClassRegistry(), root + "/viz")
+shapes = [decode_png(open(p, "rb").read()).pixels.shape for p in out]
+print("gallery", len(out), shapes[0])
+cfg = _cfg()
+ckpt, want = detectron2_state_dict(load_npz({GATE_CKPT!r}),
+                                   np.random.default_rng(0))
+torch.save(ckpt, root + "/model.pth")
+got = params_to_flax(load_predictor(cfg, root + "/model.pth",
+                                    device="cpu").model)
+print("pth", sum(np.array_equal(got[k], want[k]) for k in want), len(want))
+"""
+    cfg_src = ("def _cfg():\n"
+               "    import json\n"
+               "    from uwcv_tpu_torch.config import Config\n"
+               f"    return Config.from_dict(json.load(open("
+               f"{GATE_SPLIT!r} + '/jax/gate_config.json')))\n")
+    out = subprocess.run([sys.executable, "-c", cfg_src + code],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[-2] == "gallery 2 (48, 48, 3)"
+    n_equal, n = map(int, lines[-1].split()[1:])
+    assert n_equal == n == 93
+
+
+def test_hpo_verb_raises_without_cuda_unless_cpu(monkeypatch, tmp_path):
+    """Without a card the ``hpo`` verb refuses the default device before
+    any work; with ``--device cpu`` one small trial runs."""
+    from uwcv_tpu_torch.cli.main import main
+    from uwcv_tpu_torch.data.catalog import DatasetCatalog
+    from uwcv_tpu_torch.data.synthetic import generate_dataset
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    paths = generate_dataset(str(tmp_path / "data"), num_train=1,
+                             num_test=1, num_inference=0,
+                             image_size=(64, 64), seed=2)
+    args = ["hpo", "--data-dir", paths["Train"], "--trials", "1",
+            "--trial-iters", "1", "--output-dir", str(tmp_path / "out"),
+            "-o", f"data.classes_csv={paths['classes_csv']}",
+            "-o", "data.train_dataset=_hygiene_hpo",
+            "-o", "data.test_dataset=_hygiene_hpo_test",
+            "-o", "model.depth=26", "-o", "model.fpn_channels=32",
+            "-o", "model.box_fc_dim=32", "-o", "model.dtype=float32",
+            "-o", "input.train_size=64,64", "-o", "input.pad_size_test=64,64",
+            "-o", "input.test_short_edge=64", "-o", "input.test_max_size=64",
+            "-o", "solver.ims_per_batch=1"]
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(args)
+        assert not (tmp_path / "out").exists()
+        assert main(args + ["--device", "cpu"]) == 0
+    finally:
+        DatasetCatalog.remove("_hygiene_hpo")
+        DatasetCatalog.remove("_hygiene_hpo_test")
+    assert (tmp_path / "out" / "hpo_trial0" / "config.json").exists()
+
+
 def test_chip_smoke_alone_fails_without_output(tmp_path):
     """chip_smoke.py needs the rest of the checkout (and a card): copied
     into an otherwise empty directory it exits non-zero and prints no

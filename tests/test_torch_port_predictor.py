@@ -245,7 +245,8 @@ def test_load_predictor_adopts_checkpoint_model_cfg(tmp_path):
     assert m.anchor_aspect_ratios == (0.1, 0.5, 1.0, 2.0, 10.0)
     assert m.rpn_post_nms_topk_test == Config().model.rpn_post_nms_topk_test
     assert m.roi_score_thresh_test == 0.3 and m.dtype == "float32"
-    with pytest.raises(NotImplementedError):
+    # any other file is a torch state dict (engine/checkpoint.py)
+    with pytest.raises(FileNotFoundError):
         load_predictor(Config(), str(tmp_path / "model.pth"), device="cpu")
 
 

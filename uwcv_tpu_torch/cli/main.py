@@ -5,11 +5,13 @@
     python -m uwcv_tpu_torch.cli.main measure — the same, with distribution plots
     python -m uwcv_tpu_torch.cli.main eval    — COCO mAP on a labelled split
     python -m uwcv_tpu_torch.cli.main serve   — watch a folder, answer in JSON
+    python -m uwcv_tpu_torch.cli.main hpo     — hyperparameter search, one trial per GPU
+    python -m uwcv_tpu_torch.cli.main synth   — write the synthetic demo dataset
 
 (``uwcv-torch`` once the package is installed.)  Every config knob is a
 dotted override, ``-o postprocess.paste_chunk=10``.  ``--device`` is
 ``cuda`` unless ``--device cpu`` is given; without a card ``cuda`` raises.
-``hpo``, ``export`` and ``synth`` come with later slices.
+``synth`` needs no device.  ``export`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ def _add_common(p: argparse.ArgumentParser):
                    metavar="KEY=VALUE", help="config override (repeatable)")
     p.add_argument("--output-dir", default=None)
     p.add_argument("--weights", default=None,
-                   help=".npz checkpoint of flat Flax params")
+                   help=".npz or torch .pth")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain PyTorch path")
 
@@ -155,6 +157,27 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_hpo(args) -> int:
+    cfg = _build_cfg(args)
+    from uwcv_tpu_torch.hpo.study import run_reference_hpo
+
+    best = run_reference_hpo(cfg, n_trials=args.trials,
+                             data_dir=args.data_dir,
+                             max_iter=args.trial_iters, device=args.device)
+    print(json.dumps(best, indent=2, default=str))
+    return 0
+
+
+def cmd_synth(args) -> int:
+    from uwcv_tpu_torch.data.synthetic import generate_dataset
+
+    paths = generate_dataset(args.root, num_train=args.train,
+                             num_test=args.test, num_inference=args.infer,
+                             image_size=(args.size, args.size))
+    print(json.dumps(paths, indent=2))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="uwcv-torch",
@@ -199,6 +222,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--once", action="store_true",
                    help="drain the current backlog and exit")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("hpo", help="hyperparameter search")
+    _add_common(p)
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--trials", type=int, default=8)
+    p.add_argument("--trial-iters", type=int, default=100)
+    p.set_defaults(fn=cmd_hpo)
+
+    p = sub.add_parser("synth", help="generate the synthetic demo dataset")
+    p.add_argument("--root", default="./DATASET")
+    p.add_argument("--train", type=int, default=6)
+    p.add_argument("--test", type=int, default=2)
+    p.add_argument("--infer", type=int, default=2)
+    p.add_argument("--size", type=int, default=256)
+    p.set_defaults(fn=cmd_synth)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -1,4 +1,5 @@
-"""PNG and baseline-TIFF decoding in numpy + ``zlib``, without PIL.
+"""PNG and baseline-TIFF decoding, and 8-bit PNG writing, in numpy +
+``zlib``, without PIL.
 
 The JAX package decodes with PIL (``uwcv_tpu/data/loader.py``); the port's
 card machine has no PIL, so the port reads the two formats its users store
@@ -158,6 +159,38 @@ def png_unfilter_reference(rows: np.ndarray, h: int, stride: int,
         else:
             raise ValueError("PNG row with an unknown filter type")
     return out.astype(np.uint8)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(pixels: np.ndarray) -> bytes:
+    """An 8-bit gray [H, W] or RGB [H, W, 3] image → PNG bytes (filter 0 on
+    every row, one IDAT chunk), what PIL's ``Image.save`` gives for a PNG
+    up to its zlib settings."""
+    px = np.asarray(pixels)
+    if px.dtype != np.uint8 or not (
+            px.ndim == 2 or (px.ndim == 3 and px.shape[2] == 3)):
+        raise ValueError(f"encode_png takes uint8 [H, W] or [H, W, 3], got "
+                         f"{px.dtype} {px.shape}")
+    h, w = px.shape[:2]
+    ctype = 0 if px.ndim == 2 else 2
+    rows = np.zeros((h, 1 + px[0].size), np.uint8)    # filter byte 0
+    rows[:, 1:] = px.reshape(h, -1)
+    return (PNG_SIGNATURE
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
+                                              0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_png(path: str, pixels: np.ndarray) -> str:
+    """``encode_png`` into the file ``path``."""
+    with open(path, "wb") as f:
+        f.write(encode_png(pixels))
+    return path
 
 
 # ------------------------------------------------------------------ TIFF

@@ -4,8 +4,10 @@
 Folder of images → predictor → RLE CSV, then the per-class measurement
 sweep over the same predictions (each image is inferred once).  pandas is
 not needed: the CSVs are written by ``measure/reports.py::write_csv``,
-byte for byte as the JAX package's pandas writes them.  Not ported yet:
-``save_gt_visualizations`` (it needs the training slice's loader).
+byte for byte as the JAX package's pandas writes them.  The ground-truth
+gallery (``save_gt_visualizations``) writes its PNGs with
+``data/imageio.py::write_png`` and needs no PIL; the prediction overlays and
+union-mask JPEGs still need PIL.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import numpy as np
 
 from uwcv_tpu_torch.config import Config
 from uwcv_tpu_torch.data.classes import ClassRegistry
+from uwcv_tpu_torch.data.imageio import write_png
 from uwcv_tpu_torch.data.loader import list_inference_images, load_image_rgb
+from uwcv_tpu_torch.data.rasterize import polygons_to_mask
 from uwcv_tpu_torch.engine.predictor import Predictor
 from uwcv_tpu_torch.measure.reports import MeasurementReport, write_csv
 from uwcv_tpu_torch.measure.rle import rle_encoding
@@ -164,6 +168,35 @@ def run_batch_inference(
         progress(f"class totals: {report.summary()}")
         out["report"] = report
     return out
+
+
+def save_gt_visualizations(
+    dataset_dicts: Sequence[Dict],
+    registry: ClassRegistry,
+    output_dir: str,
+    max_images: int = 5,
+    alpha: float = 0.4,
+) -> List[str]:
+    """Ground-truth overlays of dataset dicts (the reference's random-sample
+    GT gallery, COLAB_PORT.py:167-174): the annotation polygons rasterized
+    (``data/rasterize.py``) and blended in their class colours, one
+    ``<image>_gt.png`` per record."""
+    os.makedirs(output_dir, exist_ok=True)
+    out_paths = []
+    for rec in list(dataset_dicts)[:max_images]:
+        img = load_image_rgb(rec["file_name"]).astype(np.float32)
+        h, w = img.shape[:2]
+        for ann in rec.get("annotations", []):
+            color = np.asarray(
+                registry.colors[int(ann["category_id"]) %
+                                len(registry.colors)], np.float32)
+            mask = polygons_to_mask(ann["segmentation"], h, w)
+            img[mask] = (1 - alpha) * img[mask] + alpha * color
+        name = os.path.splitext(os.path.basename(rec["file_name"]))[0]
+        out = write_png(os.path.join(output_dir, f"{name}_gt.png"),
+                        img.clip(0, 255).astype(np.uint8))
+        out_paths.append(out)
+    return out_paths
 
 
 def save_visualizations(

@@ -37,7 +37,8 @@ from uwcv_tpu_torch.utils.image import (
     pad_to_canvas,
     shortest_edge_scale,
 )
-from uwcv_tpu_torch.weights import load_npz, params_from_flax
+from uwcv_tpu_torch.engine.checkpoint import load_weights
+from uwcv_tpu_torch.weights import params_from_flax
 
 
 class PulledBatch(NamedTuple):
@@ -73,11 +74,17 @@ class Predictor:
         self.stages: Optional[HostStages] = None
         self.device = resolve_device(device)
         self.model = MaskRCNN(cfg.model)
-        if params is not None:
-            self.model.load_state_dict(params_from_flax(params), strict=True)
         self.model.to(device=self.device,
                       dtype=compute_dtype(cfg.model)).eval()
+        if params is not None:
+            self.set_params(params)
         self.pad_h, self.pad_w = cfg.input.pad_size_test
+
+    def set_params(self, params) -> None:
+        """Swap flat Flax params into the existing model in place: it keeps
+        its dtype and device, and is not rebuilt.  HPO reuses one eval
+        predictor across trials this way."""
+        self.model.load_state_dict(params_from_flax(params), strict=True)
 
     # -------- device program --------
 
@@ -228,7 +235,7 @@ class Predictor:
                 t.shape, dtype=t.dtype, pin_memory=True).copy_(
                     t, non_blocking=True) for t in fields]
             ready = torch.cuda.Event()
-            ready.record()
+            ready.record(torch.cuda.current_stream(self.device))
         mark(self.model.marks, "d2h")
         return PulledBatch(*fields, scales, out_sizes, ready)
 
@@ -287,18 +294,19 @@ class Predictor:
 def load_predictor(cfg: Config, weights: Optional[str] = None,
                    device: Optional[Union[str, torch.device]] = None
                    ) -> Predictor:
-    """Build a predictor from a ``save_params_npz`` checkpoint
-    (``weights`` or ``cfg.weights``).  A Trainer-written ``config.json``
-    beside the file (or in its parent directory) supplies the MODEL section
-    first, so the graph matches the trained params."""
+    """Build a predictor from ``weights`` or ``cfg.weights``: a
+    ``save_params_npz`` checkpoint or a torch ``.pth`` state dict mapped
+    onto the fresh model's params (``engine/checkpoint.py::load_weights``).
+    A Trainer-written ``config.json`` beside the file (or in its parent
+    directory) supplies the MODEL section first, so the graph matches the
+    trained params."""
     path = weights or cfg.weights
     if not path:
         return Predictor(cfg, None, device=device)
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"uwcv_tpu_torch loads .npz checkpoints only, got {path!r}")
     adopt_checkpoint_model_cfg(cfg, os.path.dirname(os.path.abspath(path)))
-    return Predictor(cfg, load_npz(path), device=device)
+    pred = Predictor(cfg, None, device=device)
+    pred.set_params(load_weights(path, pred.model, cfg.model))
+    return pred
 
 
 # Inference-budget / runtime-backend knobs are never adopted from a

@@ -44,7 +44,6 @@ from uwcv_tpu_torch.utils.device import mark, resolve_device
 from uwcv_tpu_torch.utils.tb_writer import SummaryWriter
 from uwcv_tpu_torch.weights import (
     flax_leaf_names,
-    load_npz,
     params_from_flax,
     params_to_flax,
 )
@@ -320,7 +319,9 @@ class Trainer:
     def resume_or_load(self, resume: bool = False) -> None:
         """``resume``: continue from the latest ``ckpt_*.pt`` in the output
         directory, if any; otherwise load ``cfg.weights`` (an ``.npz`` of
-        flat Flax params) when set, else keep the current weights."""
+        flat Flax params, or a torch ``.pth`` state dict mapped onto the
+        current weights: ``checkpoint.load_weights``) when set, else keep
+        the current weights."""
         if resume:
             latest = ckpt.latest_checkpoint(self.cfg.output_dir)
             if latest is not None:
@@ -332,8 +333,5 @@ class Trainer:
                 self.step = int(state["step"])
                 return
         if self.cfg.weights:
-            if not self.cfg.weights.endswith(".npz"):
-                raise NotImplementedError(
-                    f"uwcv_tpu_torch loads .npz weights only, got "
-                    f"{self.cfg.weights!r}")
-            self.load_params(load_npz(self.cfg.weights))
+            self.load_params(ckpt.load_weights(self.cfg.weights, self.model,
+                                               self.cfg.model))

@@ -66,10 +66,11 @@ def nms_greedy(boxes_sorted: torch.Tensor, valid: torch.Tensor,
     mask = torch.empty((p, n, (n + 63) // 64), dtype=torch.int64,
                        device=boxes_sorted.device)
     lib = kernels.library("nms")
-    rc = lib.uwcv_nms_greedy(boxes_sorted.data_ptr(), valid.data_ptr(),
-                             keep.data_ptr(), mask.data_ptr(), p, n,
-                             float(iou_threshold),
-                             kernels.stream_ptr(boxes_sorted.device))
+    with torch.cuda.device(boxes_sorted.device):
+        rc = lib.uwcv_nms_greedy(boxes_sorted.data_ptr(), valid.data_ptr(),
+                                 keep.data_ptr(), mask.data_ptr(), p, n,
+                                 float(iou_threshold),
+                                 kernels.stream_ptr(boxes_sorted.device))
     kernels.check(rc, "nms_greedy")
     nms_greedy.launches += 1
     return keep

@@ -234,9 +234,12 @@ def roi_align_windows(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
     lib = kernels.library("roi_align")
     fn = (lib.uwcv_roi_align_windows_f32 if canvas.dtype == torch.float32
           else lib.uwcv_roi_align_windows_bf16)
-    rc = fn(*[t.data_ptr() for t in args], tasks.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), r, p, h, w, c, win,
-            kernels.stream_ptr(canvas.device))
+    # the launch goes to the calling thread's current device: make it the
+    # canvas' one
+    with torch.cuda.device(canvas.device):
+        rc = fn(*[t.data_ptr() for t in args], tasks.data_ptr(),
+                weights.data_ptr(), out.data_ptr(), r, p, h, w, c, win,
+                kernels.stream_ptr(canvas.device))
     kernels.check(rc, "roi_align_windows")
     roi_align_windows.launches += 1
     return out
@@ -314,9 +317,10 @@ def roi_align_windows_backward(g, slab, y0, x0, wy, wx,
     lib = kernels.library("roi_align_bwd")
     fn = (lib.uwcv_roi_align_windows_bwd_f32 if g.dtype == torch.float32
           else lib.uwcv_roi_align_windows_bwd_bf16)
-    rc = fn(*[t.data_ptr() for t in args], tasks.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), r, p, s, h, w, c, win,
-            kernels.stream_ptr(g.device))
+    with torch.cuda.device(g.device):
+        rc = fn(*[t.data_ptr() for t in args], tasks.data_ptr(),
+                weights.data_ptr(), out.data_ptr(), r, p, s, h, w, c, win,
+                kernels.stream_ptr(g.device))
     kernels.check(rc, "roi_align_windows_backward")
     roi_align_windows_backward.launches += 1
     return out
