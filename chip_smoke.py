@@ -72,7 +72,22 @@ Phases (any failure raises and exits non-zero):
    step + 2 an eval batch); seconds per trial, training ms/step, eval
    seconds, eval predictors built, peak memory; ``save_gt_visualizations``
    over 2 train images, whose PNGs decode to the images' shape;
-12. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+12. export: the full-width phase's model (R50-FPN-256 bf16, seeded)
+   through ``export_predictor`` at batch 8 on the canvas the live
+   predictor stages 1024×1280 gray images to (832×1024), then loaded by
+   ``Predictor.from_exported`` in a child process in which ``MaskRCNN``
+   cannot be built (``--serve-artifact``); its batch of 8 and partial
+   batch of 5 (padded to 8, held against the live batch of 8's first 5)
+   equal the live predictor's (valid, classes and packed masks
+   equal; boxes within rtol 1e-5 / atol 1e-4, scores rtol 1e-5 / atol
+   1e-5); launch counts zeroed in the child just before its batches show
+   both kernels twice a batch from inside the loaded program; export
+   seconds, artifact MB, load and first-call seconds, the exported and
+   the live predictor's img/s; then the ``export`` verb at batch 4 (the
+   staged canvas as the pad canvas) and ``serve --artifact ... --once``
+   over 4 16-bit TIFFs write the JSONs of a live ``serve --once`` at the
+   same batch and canvas;
+13. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
    ``roi_align_windows_backward``, ``nms_greedy``) of the
    ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
@@ -1565,6 +1580,255 @@ def run_hpo(dev) -> dict:
             "gallery": len(gallery)}
 
 
+
+# ---------------------------------------------------------------- export
+
+EXPORT_BATCH, EXPORT_PARTIAL, EXPORT_TIMED = 8, 5, 3
+OUT_FIELDS = ("boxes", "scores", "classes", "valid", "masks")
+
+
+def _instances_arrays(insts, prefix: str) -> dict:
+    """Instances → arrays for an ``.npz`` (masks bit-packed)."""
+    return {f"{prefix}{k}": np.stack([
+        np.packbits(i.masks, axis=-1) if k == "masks" else getattr(i, k)
+        for i in insts]) for k in OUT_FIELDS}
+
+
+def serve_artifact(path: str, inputs: str, out: str) -> None:
+    """The child process of the export phase: ``Predictor.from_exported``
+    with ``MaskRCNN`` made unbuildable, then a batch of 8, a partial batch
+    of 5 and ``EXPORT_TIMED`` timed batches of 8 of the gray images in
+    ``inputs``.  Launch counts are zeroed just before those batches and
+    read just after.  Writes the first two batches' outputs, the counts
+    and the host-clock seconds to ``out``."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.models import rcnn
+    from uwcv_tpu_torch.utils.device import HostStages
+
+    def no_model(*_args, **_kwargs):
+        raise RuntimeError("the served predictor built MaskRCNN")
+
+    rcnn.MaskRCNN.__init__ = no_model
+    with np.load(inputs) as z:
+        images = [np.repeat(im, 3, axis=-1) for im in z["images"]]
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    cuda_init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = Predictor.from_exported(Config(), path)
+    load_s = time.perf_counter() - t0
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    full = served.predict_batch(images)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    partial = served.predict_batch(images[:EXPORT_PARTIAL])
+    torch.cuda.synchronize()
+    served.stages = HostStages()
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_TIMED):
+        served.predict_batch(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    np.savez(out, **_instances_arrays(full, "full_"),
+             **_instances_arrays(partial, "partial_"),
+             record=json.dumps({
+                 "cuda_init_s": cuda_init_s, "load_s": load_s,
+                 "first_call_s": first_s,
+                 "stages_ms": {k: v * 1e3 / EXPORT_TIMED
+                               for k, v in served.stages.seconds.items()},
+                 "img_per_s": EXPORT_BATCH * EXPORT_TIMED / wall,
+                 "batches": 2 + EXPORT_TIMED, "launches": launches,
+                 "no_model": served.model is None,
+                 "exported_batch": served.exported_batch,
+                 "exported_canvas": list(served.exported_canvas)}))
+
+
+def _cli(*args) -> None:
+    """``uwcv-torch ARGS`` in a process of its own; raises when it fails."""
+    cmd = [sys.executable, "-m", "uwcv_tpu_torch.cli.main", *args]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{proc.stdout}\n"
+                           f"{proc.stderr[-4000:]}")
+
+
+def run_export(dev) -> dict:
+    """R50-FPN-256 bf16 with seeded weights (the full-width phase's model)
+    exported at batch 8 on the canvas the live predictor stages 1024×1280
+    gray images to, then loaded and run in a child process that never
+    builds ``MaskRCNN`` (``serve_artifact``).  Its outputs on a batch of 8
+    and a partial batch of 5 must equal the live predictor's (valid,
+    classes and masks equal; boxes within rtol 1e-5 / atol 1e-4, scores
+    rtol 1e-5 / atol 1e-5; the partial batch against the live batch of
+    8's first 5, as the artifact runs it padded to 8), and the loaded
+    program must launch both kernels twice a batch.  Then the ``export``
+    verb writes an artifact at
+    batch 4 with the staged canvas as the pad canvas, and ``uwcv-torch
+    serve --artifact ... --once`` over 4 16-bit TIFFs must write the JSONs
+    of a live ``serve --once`` at the same batch and canvas."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.checkpoint import save_params_npz
+    from uwcv_tpu_torch.engine.export import export_predictor
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.utils.device import HostStages
+
+    work = os.path.join(WORK, "export")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = Config()
+    cfg.model.roi_score_thresh_test = 0.0
+    params = seeded_flax_params(cfg.model, 0)
+    live = Predictor(cfg, params, device=dev)
+    rng = np.random.default_rng(3)
+    gray = rng.integers(0, 256, (EXPORT_BATCH, 1024, 1280, 1), dtype=np.uint8)
+    images = [np.repeat(im, 3, axis=-1) for im in gray]
+    ops, _ = live.stage_batch(images)
+    canvas = tuple(ops[0].shape[1:3])
+    if canvas != tuple(ops[3]):
+        raise RuntimeError(f"staged canvas {canvas} != model canvas {ops[3]}")
+    path = os.path.join(work, "predictor.pt2")
+    t0 = time.perf_counter()
+    export_predictor(live, path, batch_size=EXPORT_BATCH, canvas=canvas)
+    export_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    log(f"  exported R50-FPN-256 bf16 at batch {EXPORT_BATCH}, canvas "
+        f"{canvas}: {export_s:.1f} s, {mb:.1f} MB")
+
+    full = live.predict_batch(images)
+    # the live predictor at batch 5 runs other library kernels (chosen per
+    # shape) than at batch 8; the artifact runs a partial batch padded to
+    # 8, so the like-for-like reference of its partial batch is the live
+    # batch of 8's first 5
+    live_partial = live.predict_batch(images[:EXPORT_PARTIAL])
+    partial = full[:EXPORT_PARTIAL]
+    torch.cuda.synchronize()
+    live.stages = HostStages()
+    t0 = time.perf_counter()
+    for _ in range(EXPORT_TIMED):
+        live.predict_batch(images)
+    torch.cuda.synchronize()
+    live_rate = EXPORT_BATCH * EXPORT_TIMED / (time.perf_counter() - t0)
+    live_stages = {k: v * 1e3 / EXPORT_TIMED
+                   for k, v in live.stages.seconds.items()}
+    live.stages = None
+
+    inputs = os.path.join(work, "inputs.npz")
+    np.savez(inputs, images=gray)
+    out = os.path.join(work, "served.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                           "--serve-artifact", path, inputs, out],
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"serving the artifact failed:\n{proc.stdout}\n"
+                           f"{proc.stderr[-4000:]}")
+    with np.load(out) as z:
+        got = {k: z[k] for k in z.files}
+    rec = json.loads(str(got.pop("record")))
+    want = {**_instances_arrays(full, "full_"),
+            **_instances_arrays(partial, "partial_")}
+    for key, a in want.items():
+        b = got[key]
+        if key.endswith(("boxes", "scores")):
+            atol = 1e-4 if key.endswith("boxes") else 1e-5
+            if a.shape != b.shape or not np.allclose(b, a, rtol=1e-5,
+                                                     atol=atol):
+                raise RuntimeError(f"export: {key} differs from the live "
+                                   f"predictor's by up to "
+                                   f"{np.abs(b - a).max()}")
+        elif not np.array_equal(a, b):
+            raise RuntimeError(f"export: {key} differs from the live "
+                               f"predictor's")
+    same_live = sum(np.array_equal(a.boxes, b.boxes)
+                    and np.array_equal(a.masks, b.masks)
+                    for a, b in zip(live_partial, partial))
+    log(f"  the live predictor's batch of {EXPORT_PARTIAL} equals the first "
+        f"{EXPORT_PARTIAL} of its batch of {EXPORT_BATCH} on {same_live} of "
+        f"{EXPORT_PARTIAL} images (library kernels chosen per shape)")
+    batches = rec["batches"]
+    launches = rec["launches"]
+    want_launches = {"roi_align_windows": 2 * batches,
+                     "roi_align_windows_backward": 0,
+                     "nms_greedy": 2 * batches}
+    valid = [int(v.sum()) for v in want["full_valid"]]
+    log(f"  served in a child process with no model ({child_s:.1f} s in "
+        f"all): CUDA context {rec['cuda_init_s']:.2f} s, then load "
+        f"{rec['load_s']:.2f} s, first batch of "
+        f"{EXPORT_BATCH} {rec['first_call_s']:.2f} s; batches of "
+        f"{EXPORT_BATCH} and {EXPORT_PARTIAL} equal the live predictor's "
+        f"(valid detections per image {valid}); launches over {batches} "
+        f"batches: {launches}")
+    log(f"  img/s over {EXPORT_TIMED} batches of {EXPORT_BATCH} (host "
+        f"clock): exported {rec['img_per_s']:.2f}, live {live_rate:.2f}")
+    log("  host stages a batch (ms; exported / live): " + json.dumps(
+        {k: [round(rec["stages_ms"].get(k, 0.0), 1), round(v, 1)]
+         for k, v in live_stages.items()}))
+    if launches != want_launches:
+        raise RuntimeError(f"export launches {launches}, expected "
+                           f"{want_launches} (2 a batch × {batches})")
+    if (not rec["no_model"] or sum(valid) == 0
+            or rec["exported_batch"] != EXPORT_BATCH
+            or tuple(rec["exported_canvas"]) != canvas):
+        raise RuntimeError(f"export: bad served run {rec}")
+
+    # the export and serve verbs: an artifact at the serve batch (4) on the
+    # staged canvas as the pad canvas, served against a live server at the
+    # same batch and canvas over the same 4 TIFFs
+    watch = os.path.join(work, "watch")
+    os.makedirs(watch)
+    rng = np.random.default_rng(11)
+    for i in range(4):
+        write_tiff16(os.path.join(watch, f"sem_{i:03d}.tif"),
+                     rng.integers(0, 65536, (1024, 1280), dtype=np.uint16))
+    weights = save_params_npz(os.path.join(work, "seeded.npz"), params)
+    common = ["-o", "model.roi_score_thresh_test=0.0",
+              "-o", f"input.pad_size_test={canvas[0]},{canvas[1]}"]
+    served_path = os.path.join(work, "serve4.pt2")
+    t0 = time.perf_counter()
+    _cli("export", "--weights", weights, "--path", served_path,
+         "--batch-size", "4", *common)
+    cli_export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _cli("serve", "--once", "--artifact", served_path, "--watch-dir", watch,
+         "--out-dir", os.path.join(work, "served"), *common)
+    serve_s = time.perf_counter() - t0
+    _cli("serve", "--once", "--weights", weights, "--watch-dir", watch,
+         "--out-dir", os.path.join(work, "live"), *common)
+    names = sorted(os.listdir(os.path.join(work, "live")))
+    instances = []
+    for name in names:
+        with open(os.path.join(work, "served", name)) as f:
+            a = json.load(f)
+        with open(os.path.join(work, "live", name)) as f:
+            b = json.load(f)
+        if a != b:
+            raise RuntimeError(f"serve --artifact: {name} differs from the "
+                               f"live server's")
+        instances.append(a["num_instances"])
+    if len(names) != 4 or sorted(os.listdir(os.path.join(work, "served"))) \
+            != names:
+        raise RuntimeError(f"serve: answers {names}")
+    log(f"  export verb at batch 4 ({cli_export_s:.1f} s, process "
+        f"included), then serve --artifact --once over 4 TIFFs "
+        f"({serve_s:.1f} s, process included) wrote the live server's "
+        f"JSONs; instances {instances}")
+    return {"export_s": export_s, "artifact_mb": mb,
+            "cuda_init_s": rec["cuda_init_s"], "load_s": rec["load_s"],
+            "stages_ms": rec["stages_ms"], "live_stages_ms": live_stages,
+            "first_call_s": rec["first_call_s"],
+            "img_per_s": rec["img_per_s"], "live_img_per_s": live_rate,
+            "canvas": list(canvas), "valid_per_image": valid,
+            "live_partial_equal": same_live,
+            "cli_export_s": cli_export_s, "serve_s": serve_s,
+            "serve_instances": instances,
+            "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -1574,6 +1838,8 @@ def main(argv=None) -> int:
     ap.add_argument("--time-wrappers", nargs=3, help=argparse.SUPPRESS)
     ap.add_argument("--times-only", action="store_true",
                     help=argparse.SUPPRESS)
+    # the child process of the export phase: ARTIFACT INPUTS OUT
+    ap.add_argument("--serve-artifact", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1582,6 +1848,10 @@ def main(argv=None) -> int:
         pkg, inputs, out = args.time_wrappers
         sys.path.insert(0, pkg)
         time_wrappers(inputs, out, outputs=not args.times_only)
+        return 0
+    if args.serve_artifact:
+        sys.path.insert(0, REPO)
+        serve_artifact(*args.serve_artifact)
         return 0
     sys.path.insert(0, REPO)
     from uwcv_tpu_torch import kernels
@@ -1636,6 +1906,9 @@ def main(argv=None) -> int:
     log("[hpo] synth, then run_reference_hpo at the default config")
     hpo = run_hpo(dev)
 
+    log("[export] full width: export, serve from the artifact")
+    export = run_export(dev)
+
     against = {}
     if args.against:
         log(f"[against] kernel wrappers of {args.against} against these")
@@ -1644,7 +1917,7 @@ def main(argv=None) -> int:
 
     phases = {"full width": launches, "folder": folder["launches"],
               "train": train["launches"], "pth import": pth["launches"],
-              "hpo": hpo["launches"]}
+              "hpo": hpo["launches"], "export": export["launches"]}
 
     def counts(name):
         by_phase = {k: v.get(name, 0) for k, v in phases.items()}
@@ -1687,7 +1960,8 @@ def main(argv=None) -> int:
                                  if k.startswith("roi_align_windows_backward")}
     log(json.dumps({"folder": folder, "folder_golden": folder_golden,
                     "eval": gate_eval, "train_golden": train_golden,
-                    "train": train, "pth_import": pth, "hpo": hpo},
+                    "train": train, "pth_import": pth, "hpo": hpo,
+                    "export": export},
                    default=str))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

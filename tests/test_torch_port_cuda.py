@@ -481,3 +481,39 @@ def test_hpo_trials_run_one_a_card(second_card, tmp_path):
     assert [t["state"] for t in res["trials"]] == ["COMPLETE"] * n, res
     assert res["objective"] == "segm_mAP"
     assert res["eval_predictors"] == n
+
+
+def test_exported_program_on_card_matches_live_and_launches_kernels(
+        dev, tmp_path):
+    """Export → save → load → run on the card at small width (bf16): the
+    served outputs equal the live predictor's on a full and a partial
+    batch, and the loaded program launches both kernels (twice a batch
+    each), counted by their wrappers."""
+    import numpy as np
+
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.engine.export import export_predictor
+    from uwcv_tpu_torch.engine.predictor import Predictor
+
+    cfg = _small_cfg()
+    cfg.model.roi_score_thresh_test = 0.0
+    live = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
+    path = export_predictor(live, str(tmp_path / "p.pt2"), batch_size=4)
+    served = Predictor.from_exported(cfg, path, device=dev)
+    assert served.model is None and served.exported_batch == 4
+    rng = np.random.default_rng(2)
+    images = [np.repeat(rng.integers(0, 256, (128, 128, 1), dtype=np.uint8),
+                        3, axis=-1) for _ in range(4)]
+    want = live.predict_batch(images)
+    before = (roi_align_windows.launches, nms_greedy.launches)
+    got = served.predict_batch(images) + served.predict_batch(images[:3])
+    torch.cuda.synchronize()
+    assert (roi_align_windows.launches - before[0],
+            nms_greedy.launches - before[1]) == (4, 4)
+    for a, b in zip(want + want[:3], got):
+        np.testing.assert_array_equal(b.valid, a.valid)
+        np.testing.assert_array_equal(b.classes, a.classes)
+        np.testing.assert_array_equal(b.masks, a.masks)
+        np.testing.assert_allclose(b.boxes, a.boxes, rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(b.scores, a.scores, rtol=1e-5, atol=1e-5)
+    assert sum(int(a.valid.sum()) for a in want) > 0

@@ -378,9 +378,8 @@ def test_cli_module_runs_as_a_script():
                          timeout=120, cwd=REPO)
     assert out.returncode == 0
     for verb in ("train", "infer", "measure", "eval", "serve", "hpo",
-                 "synth"):
+                 "synth", "export"):
         assert verb in out.stdout
-    assert "export" not in out.stdout
 
 
 if __name__ == "__main__":

@@ -11,7 +11,10 @@ the fused windowed RoIAlign (``ops/roi_align.py::roi_align_windows``) and
 the greedy NMS (``ops/nms.py::nms_greedy``); so is RoIAlign's backward
 (``ops/roi_align.py::roi_align_windows_backward``), which training pools
 through.  Each wrapper runs its plain PyTorch version only for CPU
-tensors; on a CUDA tensor it launches the kernel or raises.
+tensors; on a CUDA tensor it launches the kernel or raises.  The two
+inference kernels are ``torch.library`` ops (``uwcv::roi_align_windows``,
+``uwcv::nms_greedy``), so an exported program (``engine/export.py``) keeps
+calling them.
 """
 
 __version__ = "0.1.0"

@@ -5,13 +5,17 @@
     python -m uwcv_tpu_torch.cli.main measure — the same, with distribution plots
     python -m uwcv_tpu_torch.cli.main eval    — COCO mAP on a labelled split
     python -m uwcv_tpu_torch.cli.main serve   — watch a folder, answer in JSON
+                                              (from weights or an exported program)
+    python -m uwcv_tpu_torch.cli.main export  — save the inference program, weights
+                                              included, to one .pt2 file for serve
     python -m uwcv_tpu_torch.cli.main hpo     — hyperparameter search, one trial per GPU
     python -m uwcv_tpu_torch.cli.main synth   — write the synthetic demo dataset
 
 (``uwcv-torch`` once the package is installed.)  Every config knob is a
 dotted override, ``-o postprocess.paste_chunk=10``.  ``--device`` is
 ``cuda`` unless ``--device cpu`` is given; without a card ``cuda`` raises.
-``synth`` needs no device.  ``export`` comes with a later slice.
+``synth`` needs no device.  An ``export``ed program serves on the device
+type it was exported for.
 """
 
 from __future__ import annotations
@@ -146,14 +150,30 @@ def cmd_eval(args) -> int:
 
 def cmd_serve(args) -> int:
     cfg = _build_cfg(args)
+    from uwcv_tpu_torch.engine.predictor import Predictor
     from uwcv_tpu_torch.engine.serve import serve_forever
 
-    predictor = _predictor(cfg, args.device)
+    if args.artifact:
+        predictor = Predictor.from_exported(cfg, args.artifact,
+                                            device=args.device)
+    else:
+        predictor = _predictor(cfg, args.device)
     n = serve_forever(cfg, predictor, args.watch_dir,
                       args.out_dir or os.path.join(cfg.output_dir, "served"),
                       batch_size=args.batch_size, poll_s=args.poll,
                       once=args.once)
     print(f"served {n} images")
+    return 0
+
+
+def cmd_export(args) -> int:
+    cfg = _build_cfg(args)
+    from uwcv_tpu_torch.engine.export import export_predictor
+
+    predictor = _predictor(cfg, args.device)
+    path = export_predictor(predictor, args.path, batch_size=args.batch_size)
+    mb = os.path.getsize(path) / 1e6
+    print(f"wrote {path} ({mb:.1f} MB, batch {args.batch_size})")
     return 0
 
 
@@ -213,15 +233,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("serve", help="watch a folder, serve inference "
-                                     "results as JSON")
+                                     "results as JSON (from weights or an "
+                                     "exported program)")
     _add_common(p)
     p.add_argument("--watch-dir", required=True)
     p.add_argument("--out-dir", default=None)
+    p.add_argument("--artifact", default=None,
+                   help="exported program from `export`")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--poll", type=float, default=1.0)
     p.add_argument("--once", action="store_true",
                    help="drain the current backlog and exit")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export", help="save the inference program, weights "
+                                      "included, to one .pt2 file for serve")
+    _add_common(p)
+    p.add_argument("--path", default="./output/predictor.pt2")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser("hpo", help="hyperparameter search")
     _add_common(p)

@@ -5,7 +5,9 @@ The host decodes, resizes (antialiased bilinear, no PIL) and pads a batch;
 the device runs the optional resample, Mask R-CNN inference, the head-
 resolution mask cleanup, the full-canvas paste, overlap claim, min-pixel
 filter and bit-pack; the host pulls the valid prefix and builds padded
-``Instances``.  Not ported yet: ``mesh`` (multi-GPU) and ``from_exported``.
+``Instances``.  ``Predictor.from_exported`` serves an exported program
+(``engine/export.py``) through the same host API.  Not ported yet: ``mesh``
+(multi-GPU).
 """
 
 from __future__ import annotations
@@ -54,6 +56,84 @@ class PulledBatch(NamedTuple):
     ready: Optional[torch.cuda.Event]
 
 
+@torch.no_grad()
+def device_program(model: MaskRCNN, cfg: Config, images: torch.Tensor,
+                   scales: torch.Tensor, out_sizes: torch.Tensor, canvas,
+                   unit_scale: Optional[bool] = None):
+    """The predictor's device program: the optional resample, Mask R-CNN
+    inference, the head-resolution mask cleanup, the paste, overlap claim,
+    min-pixel filter and bit-pack.  ``Predictor._run`` runs it eagerly and
+    ``engine/export.py`` traces it.
+
+    images [B,Hc,Wc,3|1] uint8 host-padded; scales [B] f32; out_sizes [B,2]
+    (true resized h, w); canvas (h, w): the canvas the model runs at →
+    (Detections, packed masks [B,D,H,W/8] uint8 | None, keep [B,D] bool).
+    ``unit_scale`` says whether every scale is 1 (the host already
+    resampled, so the device resample is an identity); None decides it on
+    the device with ``torch.cond``, as the JAX package's ``lax.cond``
+    (predictor.py:199-209) does, which is how an exported program runs."""
+    mch, mcw = canvas
+    if images.shape[-1] == 1:
+        # grayscale transfer: one channel shipped, re-broadcast to RGB
+        images = images.expand(images.shape[:-1] + (3,))
+    dev = images.device
+    yy = torch.arange(mch, device=dev)[None, :, None]
+    xx = torch.arange(mcw, device=dev)[None, None, :]
+    inside = ((yy < out_sizes[:, 0][:, None, None])
+              & (xx < out_sizes[:, 1][:, None, None]))          # [B,H,W]
+
+    def as_is(images, scales, inside):
+        return images.float() * inside[..., None]
+
+    def resample(images, scales, inside):
+        return torch.stack([
+            device_resize(images[i], scales[i], mch, mcw)
+            for i in range(images.shape[0])]) * inside[..., None]
+
+    operands = (images, scales, inside)
+    if images.shape[1:3] != (mch, mcw):
+        resized = resample(*operands)
+    elif unit_scale is None:
+        resized = torch.cond(torch.all(scales == 1.0), as_is, resample,
+                             operands)
+    else:
+        resized = (as_is if unit_scale else resample)(*operands)
+
+    dets, mask_probs = model.inference(resized)
+    if mask_probs is None:   # box-only config (mask_on=False)
+        return dets, None, dets.valid
+
+    pp = cfg.postprocess
+    cleaned, single = clean_head_masks(
+        mask_probs, 0.5, do_fill_holes=pp.fill_holes,
+        do_smooth=pp.smooth, drop_fragmented=pp.drop_fragmented)
+    keep = dets.valid & single & (dets.scores >= pp.score_floor)
+    paste_dtype = getattr(torch, pp.paste_dtype)
+    if pp.paste_chunk > 0:
+        # the fused tail: one [B, chunk, H, W] transient at a time;
+        # bit-identical to the chain below
+        packed, keep = paste_select_pack(
+            cleaned.float(), dets.boxes, keep, dets.scores, (mch, mcw),
+            min_pixels=pp.min_mask_pixels,
+            do_remove_overlaps=pp.remove_overlaps, chunk=pp.paste_chunk,
+            dtype=paste_dtype, extent=inside)
+        mark(model.marks, "mask tail")
+        return dets, packed, keep
+    masks = paste_masks(cleaned.float(), dets.boxes, (mch, mcw),
+                        dtype=paste_dtype)
+    # pasted pixels beyond the image's true extent are not content
+    masks &= inside[:, None]
+    if pp.remove_overlaps:
+        scores = torch.where(keep, dets.scores,
+                             torch.full_like(dets.scores, -np.inf))
+        order = torch.sort(-scores, dim=-1, stable=True).indices
+        masks = remove_overlaps(masks, order)
+    keep &= masks.sum(dim=(2, 3)) >= pp.min_mask_pixels
+    packed = pack_bitmasks(masks & keep[..., None, None])
+    mark(model.marks, "mask tail")
+    return dets, packed, keep
+
+
 class Predictor:
     """predictor = Predictor(cfg, flat_flax_params); insts =
     predictor.predict_batch(images_rgb)
@@ -84,69 +164,45 @@ class Predictor:
         """Swap flat Flax params into the existing model in place: it keeps
         its dtype and device, and is not rebuilt.  HPO reuses one eval
         predictor across trials this way."""
+        if self.model is None:
+            raise ValueError("an exported program's weights are baked into "
+                             "it: export again to change them")
         self.model.load_state_dict(params_from_flax(params), strict=True)
+
+    @classmethod
+    def from_exported(cls, cfg: Config, path: str,
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> "Predictor":
+        """Serve an exported inference program (``engine/export.py``): the
+        same host API, but the device program, weights included, loads
+        from ``path`` with no model built.  Batches smaller than the
+        exported batch are padded in and sliced out; images must fit the
+        exported canvas, which is also the canvas the model runs at."""
+        from uwcv_tpu_torch.engine.export import load_exported
+
+        self = cls.__new__(cls)
+        self.cfg = cfg
+        self.stages = None
+        self.device = resolve_device(device)
+        self.model = None
+        self.pad_h, self.pad_w = cfg.input.pad_size_test
+        self._run, self.exported_batch, self.exported_canvas = \
+            load_exported(path, self.device)
+        return self
 
     # -------- device program --------
 
-    @torch.no_grad()
     def _run(self, images: torch.Tensor, scales: np.ndarray,
              out_sizes: torch.Tensor, model_canvas=None):
         """images [B,Hc,Wc,3|1] uint8 host-padded (on the device); scales
         [B] host floats; out_sizes [B,2] (true resized h, w) → (Detections,
-        packed masks [B,D,H,W/8] uint8 | None, keep [B,D] bool)."""
-        cfg = self.cfg
-        mch, mcw = model_canvas or (self.pad_h, self.pad_w)
-        if images.shape[-1] == 1:
-            # grayscale transfer: one channel shipped, re-broadcast to RGB
-            images = images.expand(images.shape[:-1] + (3,))
-        dev = images.device
-        yy = torch.arange(mch, device=dev)[None, :, None]
-        xx = torch.arange(mcw, device=dev)[None, None, :]
-        inside = ((yy < out_sizes[:, 0][:, None, None])
-                  & (xx < out_sizes[:, 1][:, None, None]))      # [B,H,W]
-        if images.shape[1:3] == (mch, mcw) and bool(np.all(scales == 1.0)):
-            # unit-scale fast path (predictor.py:197-209): the host already
-            # resampled every image, the device resample is an identity
-            resized = images.float() * inside[..., None]
-        else:
-            scale_t = torch.as_tensor(scales, dtype=torch.float32)
-            resized = torch.stack([
-                device_resize(images[i], scale_t[i], mch, mcw)
-                for i in range(images.shape[0])]) * inside[..., None]
-
-        dets, mask_probs = self.model.inference(resized)
-        if mask_probs is None:   # box-only config (mask_on=False)
-            return dets, None, dets.valid
-
-        pp = cfg.postprocess
-        cleaned, single = clean_head_masks(
-            mask_probs, 0.5, do_fill_holes=pp.fill_holes,
-            do_smooth=pp.smooth, drop_fragmented=pp.drop_fragmented)
-        keep = dets.valid & single & (dets.scores >= pp.score_floor)
-        paste_dtype = getattr(torch, pp.paste_dtype)
-        if pp.paste_chunk > 0:
-            # the fused tail: one [B, chunk, H, W] transient at a time;
-            # bit-identical to the chain below
-            packed, keep = paste_select_pack(
-                cleaned.float(), dets.boxes, keep, dets.scores, (mch, mcw),
-                min_pixels=pp.min_mask_pixels,
-                do_remove_overlaps=pp.remove_overlaps, chunk=pp.paste_chunk,
-                dtype=paste_dtype, extent=inside)
-            mark(self.model.marks, "mask tail")
-            return dets, packed, keep
-        masks = paste_masks(cleaned.float(), dets.boxes, (mch, mcw),
-                            dtype=paste_dtype)
-        # pasted pixels beyond the image's true extent are not content
-        masks &= inside[:, None]
-        if pp.remove_overlaps:
-            scores = torch.where(keep, dets.scores,
-                                 torch.full_like(dets.scores, -np.inf))
-            order = torch.sort(-scores, dim=-1, stable=True).indices
-            masks = remove_overlaps(masks, order)
-        keep &= masks.sum(dim=(2, 3)) >= pp.min_mask_pixels
-        packed = pack_bitmasks(masks & keep[..., None, None])
-        mark(self.model.marks, "mask tail")
-        return dets, packed, keep
+        packed masks [B,D,H,W/8] uint8 | None, keep [B,D] bool).  The host
+        knows the scales, so it picks the unit-scale fast path itself."""
+        return device_program(
+            self.model, self.cfg, images,
+            torch.as_tensor(scales, dtype=torch.float32), out_sizes,
+            model_canvas or (self.pad_h, self.pad_w),
+            unit_scale=bool(np.all(np.asarray(scales) == 1.0)))
 
     # -------- host API --------
 
@@ -236,7 +292,7 @@ class Predictor:
                     t, non_blocking=True) for t in fields]
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
-        mark(self.model.marks, "d2h")
+        mark(getattr(self.model, "marks", None), "d2h")
         return PulledBatch(*fields, scales, out_sizes, ready)
 
     def to_instances(self, out) -> List[Instances]:

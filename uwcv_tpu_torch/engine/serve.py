@@ -4,8 +4,9 @@ Watches a directory for new images, batches them through a Predictor and
 writes one JSON result per image (boxes in original pixels, scores,
 classes, masks RLE-encoded in the reference CSV codec).  Results already in
 the output directory are not served again, so a restarted service resumes
-where it stopped.  Serving from an exported program (``from_exported``)
-comes with the export slice.
+where it stopped.  The predictor may be a live one or one that serves an
+exported program (``Predictor.from_exported``); batches never exceed the
+exported batch.
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ def serve_forever(
     done = {f[:-len(".json")] for f in os.listdir(out_dir)
             if f.endswith(".json")}
     n_total = 0
+    cap = getattr(predictor, "exported_batch", None)
+    if cap is not None:
+        batch_size = min(batch_size, cap)
     while True:
         fresh = sorted(
             os.path.join(watch_dir, f) for f in os.listdir(watch_dir)

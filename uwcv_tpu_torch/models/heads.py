@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn as nn
@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from uwcv_tpu_torch.config import ModelConfig
 from uwcv_tpu_torch.ops.nms import NEG_INF, batched_class_nms_mask, topk_stable
 from uwcv_tpu_torch.structures.boxes import (
+    Detections,
     clip_boxes,
     decode_deltas,
     nonempty_boxes,
@@ -65,13 +66,6 @@ class MaskHead(nn.Module):
         h = F.relu(self.deconv(h))
         # back to f32 (heads.py:67), NHWC
         return self.predictor(h).permute(0, 2, 3, 1).float()
-
-
-class Detections(NamedTuple):
-    boxes: torch.Tensor    # [B, D, 4]
-    scores: torch.Tensor   # [B, D]
-    classes: torch.Tensor  # [B, D] int64
-    valid: torch.Tensor    # [B, D] bool
 
 
 def inference_detections(proposal_boxes: torch.Tensor,

@@ -8,10 +8,14 @@
   dilation constrained to ~mask (scipy ``binary_fill_holes``);
 - connected components: 8-connected label-min propagation.
 
-The floods run as Python loops until nothing changes: the converged state
-is the loop's fixed point, so the result equals the JAX ``while_loop``
-whatever the iteration count, and a whole batch of masks converges in one
-loop.  At head resolution (28×28) each pass is cheap.
+The floods are loops (the JAX ``lax.while_loop``s of morphology.py:103-112
+and :133-145) whose carry holds the state and a changed flag: under
+``torch.export`` a ``while_loop``, which the exported program keeps as a
+loop; run eagerly, the same condition and body in a Python loop that reads
+the flag on the host once a pass.  The converged state is the loop's fixed
+point, so the result equals the JAX package's whatever the iteration
+count, and a whole batch of masks converges in one loop.  At head
+resolution (28×28) each pass is cheap.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+# public as torch.while_loop on recent releases only
+from torch._higher_order_ops.while_loop import while_loop
 
 
 def _max_pool(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
@@ -60,6 +67,27 @@ def close_open_smooth(mask: torch.Tensor) -> torch.Tensor:
     return erode(dilate(mask))
 
 
+def _loop(cond_fn, body_fn, carry):
+    """``while_loop(cond_fn, body_fn, carry)``.  Eagerly it runs as a Python
+    loop: torch's eager ``while_loop`` would first compile the body with
+    dynamo, and again for each new shape."""
+    if torch.compiler.is_exporting():
+        return while_loop(cond_fn, body_fn, carry)
+    while cond_fn(*carry):
+        carry = body_fn(*carry)
+    return carry
+
+
+def _changed(state, changed):
+    """The floods' loop condition: the last pass changed the state (a
+    copy: a loop's condition may not return one of its inputs)."""
+    return changed.clone()
+
+
+def _true(like: torch.Tensor) -> torch.Tensor:
+    return torch.ones((), dtype=torch.bool, device=like.device)
+
+
 def fill_holes(mask: torch.Tensor) -> torch.Tensor:
     """``scipy.ndimage.binary_fill_holes`` for bool [..., H, W] stacks:
     background unreachable from the border through 4-connected background
@@ -70,12 +98,12 @@ def fill_holes(mask: torch.Tensor) -> torch.Tensor:
     border[..., -1, :] = True
     border[..., :, 0] = True
     border[..., :, -1] = True
-    flood = border & inv
-    while True:
+
+    def body(flood, _):
         new = dilate(flood, connectivity=1) & inv
-        if torch.equal(new, flood):
-            break
-        flood = new
+        return new, (new != flood).any()
+
+    flood, _ = _loop(_changed, body, (border & inv, _true(mask)))
     return mask | (~flood & inv)
 
 
@@ -89,12 +117,13 @@ def connected_components(mask: torch.Tensor) -> torch.Tensor:
                          dtype=torch.float32).reshape(h, w)
     big = float(h * w + 2)
     labels = torch.where(mask, seeds, torch.full_like(seeds, big))
-    while True:
+
+    def body(labels, _):
         prop = _pool(labels, "min", (3, 3))
         new = torch.where(mask, torch.minimum(labels, prop), labels)
-        if torch.equal(new, labels):
-            break
-        labels = new
+        return new, (new != labels).any()
+
+    labels, _ = _loop(_changed, body, (labels, _true(mask)))
     return torch.where(mask, labels, torch.zeros_like(labels)).to(torch.int64)
 
 

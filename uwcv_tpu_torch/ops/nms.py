@@ -5,7 +5,8 @@ returns a fixed-size keep *mask*.  The greedy walk itself is the CUDA code
 ``csrc/nms.cu`` (the port of the Pallas kernel
 ``uwcv_tpu/ops/pallas/nms_kernel.py``): one call, two kernels (suppression
 bits, then a scan), for a whole batch of problems through
-``nms_mask_batched``.
+``nms_mask_batched``.  The call is the ``torch.library`` op
+``uwcv::nms_greedy``, which an exported program records and makes again.
 """
 
 from __future__ import annotations
@@ -41,9 +42,23 @@ def nms_greedy(boxes_sorted: torch.Tensor, valid: torch.Tensor,
     """Greedy NMS over P independent problems of N score-sorted boxes:
     boxes_sorted [P,N,4] f32, valid [P,N] bool → keep [P,N] bool.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels (a
-    suppression bit matrix over all SMs, then one warp scan per problem) or
-    raise."""
+    Calls the op ``uwcv::nms_greedy``, so ``torch.export`` records the
+    kernel call and an exported program makes it again.  CPU tensors take
+    the plain version; CUDA tensors launch the kernels (a suppression bit
+    matrix over all SMs, then one warp scan per problem) or raise."""
+    return torch.ops.uwcv.nms_greedy(boxes_sorted, valid, float(iou_threshold))
+
+
+nms_greedy.launches = 0   # kernel launches, counted by the op
+
+# defined and implemented directly, as ``ops/roi_align.py``'s op is
+torch.library.define(
+    "uwcv::nms_greedy",
+    "(Tensor boxes_sorted, Tensor valid, float iou_threshold) -> Tensor")
+
+
+@torch.library.impl("uwcv::nms_greedy", "default")
+def _nms_greedy_op(boxes_sorted, valid, iou_threshold):
     if boxes_sorted.device.type == "cpu":
         return nms_greedy_reference(boxes_sorted, valid, iou_threshold)
     p, n = valid.shape
@@ -76,7 +91,9 @@ def nms_greedy(boxes_sorted: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-nms_greedy.launches = 0
+@torch.library.register_fake("uwcv::nms_greedy")
+def _(boxes_sorted, valid, iou_threshold):
+    return torch.empty_like(valid)
 
 
 def _argsort_desc(scores: torch.Tensor) -> torch.Tensor:

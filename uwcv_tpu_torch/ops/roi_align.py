@@ -10,10 +10,12 @@ Each roi pools from one ``window``² neighbourhood of a padded level canvas:
 ``window_geometry`` places the window and folds the 2×2 bin average into
 per-roi interpolation weights ``wy``/``wx``, and ``roi_align_windows`` (the
 CUDA kernel ``csrc/roi_align.cu``, port of the Pallas kernel
-``uwcv_tpu/ops/pallas/roi_align_kernel.py``) contracts each window with
-them.  The Mosaic 8-column x alignment of the TPU path is not ported: the
-window is ``window`` wide in x too (x_align=1), which moves only where the
-nonzero weights sit, not the result.
+``uwcv_tpu/ops/pallas/roi_align_kernel.py``, called through the
+``torch.library`` op ``uwcv::roi_align_windows`` so that an exported
+program records and makes the call) contracts each window with them.  The
+Mosaic 8-column x alignment of the TPU path is not ported: the window is
+``window`` wide in x too (x_align=1), which moves only where the nonzero
+weights sit, not the result.
 
 Pooling is differentiable with respect to the canvas (``PoolWindows``, the
 port of the ``custom_vjp`` ``pool_windows``): the backward
@@ -195,9 +197,26 @@ def roi_align_windows(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
     """Fused windowed RoIAlign: canvas [S,Hmax,Wmax,C] f32|bf16, slab/y0/x0
     [R] int32, wy/wx [R,P,win] f32 → pooled [R,P,P,C] in the canvas dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel (or
-    raise; the kernel needs C % 8 == 0 and win <= 32).  Every window must
-    lie inside the canvas, which ``window_geometry`` guarantees."""
+    Calls the op ``uwcv::roi_align_windows``, so ``torch.export`` records
+    the kernel call and an exported program makes it again.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (or raise; the
+    kernel needs C % 8 == 0 and win <= 32).  Every window must lie inside
+    the canvas, which ``window_geometry`` guarantees."""
+    return torch.ops.uwcv.roi_align_windows(canvas, slab, y0, x0, wy, wx)
+
+
+roi_align_windows.launches = 0   # kernel launches, counted by the op
+
+# defined and implemented directly: ``torch.library.custom_op`` would wrap
+# the implementation in Python layers that add to every call's dispatch
+torch.library.define(
+    "uwcv::roi_align_windows",
+    "(Tensor canvas, Tensor slab, Tensor y0, Tensor x0, Tensor wy, "
+    "Tensor wx) -> Tensor")
+
+
+@torch.library.impl("uwcv::roi_align_windows", "default")
+def _roi_align_windows_op(canvas, slab, y0, x0, wy, wx):
     if canvas.device.type == "cpu":
         return roi_align_windows_reference(canvas, slab, y0, x0, wy, wx)
     if canvas.dtype not in (torch.float32, torch.bfloat16):
@@ -245,7 +264,10 @@ def roi_align_windows(canvas, slab, y0, x0, wy, wx) -> torch.Tensor:
     return out
 
 
-roi_align_windows.launches = 0
+@torch.library.register_fake("uwcv::roi_align_windows")
+def _(canvas, slab, y0, x0, wy, wx):
+    r, p, _ = wy.shape
+    return canvas.new_empty((r, p, p, canvas.shape[-1]))
 
 
 def roi_align_windows_backward_reference(g, slab, y0, x0, wy, wx,

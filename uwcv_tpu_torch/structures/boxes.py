@@ -9,9 +9,20 @@ RPN (weights 1,1,1,1) and the ROI heads (weights 10,10,5,5).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
+
+
+class Detections(NamedTuple):
+    """Padded per-image detections on the device (``models/heads.py``
+    makes them; an exported program's loader rebuilds them from its flat
+    outputs)."""
+    boxes: torch.Tensor    # [B, D, 4]
+    scores: torch.Tensor   # [B, D]
+    classes: torch.Tensor  # [B, D] int64
+    valid: torch.Tensor    # [B, D] bool
+
 
 # Detectron2 clamps dw/dh to log(1000/16) before exp to avoid overflow.
 _SCALE_CLAMP = math.log(1000.0 / 16.0)

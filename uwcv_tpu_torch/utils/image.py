@@ -12,6 +12,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+# jax.image's weight-normalisation threshold (compute_weight_mat)
+_WEIGHT_EPS = 1000.0 * float(np.finfo(np.float32).eps)
+
 
 def shortest_edge_scale(h: int, w: int, short: int = 800,
                         max_size: int = 1333) -> float:
@@ -67,9 +70,8 @@ def _resize_weights(input_size: int, output_size: int, scale: torch.Tensor
                                   device=dev)[:, None]) / kernel_scale)
     weights = torch.clamp_min(1.0 - torch.abs(x), 0.0)
     total = weights.sum(dim=0, keepdim=True)
-    eps = 1000.0 * float(np.finfo(np.float32).eps)
     weights = torch.where(
-        torch.abs(total) > eps,
+        torch.abs(total) > _WEIGHT_EPS,
         weights / torch.where(total != 0, total, torch.ones_like(total)),
         torch.zeros_like(weights))
     inside = (sample_f >= -0.5) & (sample_f <= input_size - 0.5)
