@@ -87,7 +87,31 @@ Phases (any failure raises and exits non-zero):
    staged canvas as the pad canvas) and ``serve --artifact ... --once``
    over 4 16-bit TIFFs write the JSONs of a live ``serve --once`` at the
    same batch and canvas;
-13. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+13. dp golden: the train golden of phase 8 data-parallel: two gloo ranks
+   on ``cuda:0`` (NCCL refuses two ranks on one card) and, with two or
+   more cards, two NCCL ranks on ``cuda:0`` and ``cuda:1``, each rank on
+   one of the golden's two images with its rows of the sampler draws, in
+   f32 (TF32 off); each step's all-reduced losses and the step-0 norms of
+   the gradients summed over the ranks within 1e-3 relative of the JAX
+   package's global-batch values, the masters bit-identical across ranks
+   (``run_ranks``: spawned ranks, a ``file://`` rendezvous, a timeout);
+14. dp train: ``Trainer.fit`` at the default config (R50-FPN-256, bf16
+   compute, f32 masters, 800×800) over the 12 gate images staged on each
+   rank's card, each rank on its share of the global batch
+   (``TrainLoader(process_index, process_count)``): on one card two gloo
+   ranks sharing ``cuda:0`` at global batch 2, 2 + 8 steps (a correctness
+   run, not a rate); with two or more cards one NCCL rank per card at
+   global batch 2 × cards, 2 + 20 steps, and ``nvidia-smi topo -m``'s
+   rows of the cards; finite global losses, bit-identical masters, per
+   rank B1 2, B1-bwd 2 and B2 1 a step (counts zeroed just before);
+   ms/step, img/s and the gradient all-reduce's share of a step (CUDA
+   events); a phase skipped for want of a second card says so;
+15. mesh predict: the full-width model over a mesh of ``[cuda:0,
+   cuda:0]`` (one card) or of every card: a batch of 8 equal to the
+   single-device predictor on each device's slice, then
+   ``run_batch_inference`` over 16 16-bit TIFFs at batch 5, each chunk
+   padded to the mesh; B1 and B2 2 a batch on each device;
+16. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
    ``roi_align_windows_backward``, ``nms_greedy``) of the
    ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
@@ -95,10 +119,12 @@ Phases (any failure raises and exits non-zero):
    process, in turns (DIR, this, this, DIR); their outputs must agree as
    in phase 2.
 
-Scratch files go under ``build/chip_smoke/``.  Prints the card's name and
-power limit, the folder and eval records, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
-without one it exits non-zero and prints no result.
+A rank that fails or hangs fails its phase; no rank falls back to the
+CPU.  Scratch files go under ``build/chip_smoke/``.  Prints the card's
+name and power limit, the folder and eval records, a ``{"kernels":
+[...]}`` line, and as its last line ``{"ok": true, "device": {...}}``.
+Needs one CUDA device; without one it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -923,6 +949,18 @@ def _zero_launch_counts() -> None:
         f.launches = 0
 
 
+def write_folder_tiffs(image_dir: str, n_images: int) -> str:
+    """``n_images`` seeded 1024×1280 16-bit TIFFs in a fresh
+    ``image_dir``."""
+    shutil.rmtree(image_dir, ignore_errors=True)
+    os.makedirs(image_dir)
+    rng = np.random.default_rng(5)
+    for i in range(n_images):
+        write_tiff16(os.path.join(image_dir, f"sem_{i:03d}.tif"),
+                     rng.integers(0, 65536, (1024, 1280), dtype=np.uint16))
+    return image_dir
+
+
 def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     """R50-FPN-256 bf16 with seeded weights over ``n_images`` seeded
     1024×1280 16-bit TIFFs through ``run_batch_inference`` with the
@@ -933,13 +971,8 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     from uwcv_tpu_torch.engine.predictor import Predictor
     from uwcv_tpu_torch.utils.device import HostStages
 
-    image_dir = os.path.join(WORK, "folder_tiff")
-    shutil.rmtree(image_dir, ignore_errors=True)
-    os.makedirs(image_dir)
-    rng = np.random.default_rng(5)
-    for i in range(n_images):
-        write_tiff16(os.path.join(image_dir, f"sem_{i:03d}.tif"),
-                     rng.integers(0, 65536, (1024, 1280), dtype=np.uint16))
+    image_dir = write_folder_tiffs(os.path.join(WORK, "folder_tiff"),
+                                   n_images)
     cfg = Config()
     cfg.model.roi_score_thresh_test = 0.0
     cfg.output_dir = os.path.join(WORK, "folder_out")
@@ -1829,6 +1862,426 @@ def run_export(dev) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------- data parallel
+
+# full-width data-parallel training: (global batch per rank, warm-up, timed)
+DP_SHARED = (1, 2, 8)        # two gloo ranks sharing one card: 10 steps
+DP_CARDS = (2, 2, 20)        # one NCCL rank per card
+MESH_BATCH, MESH_FOLDER_BATCH = 8, 5
+
+
+def _masters_digest(model) -> str:
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
+              norm_rtol: float = 1e-3) -> dict:
+    """One rank of the data-parallel train golden: the gate checkpoint in
+    f32 (TF32 off), rank r training on row r of the golden's two images
+    with row r of its sampler draws for the golden's 3 SGD steps.  The
+    all-reduced losses of each step must lie within ``loss_rtol`` of the
+    JAX package's global-batch values and the step-0 gradient norms, of
+    the gradients summed over the ranks, within ``norm_rtol``.  Launch
+    counts are zeroed just before the steps.  → losses' and norms' worst
+    relative errors, launches and a digest of the masters."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
+    from uwcv_tpu_torch.weights import flax_leaf_names, load_npz
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(TRAIN_GOLDEN) as z:
+        g = {k: z[k] for k in z.files}
+    cfg = Config.from_dict(json.loads(str(g["config_json"])))
+    cfg.output_dir = os.path.join(out_dir, "golden")
+    trainer = Trainer(cfg, device=dev)
+    world = trainer.world
+    if world is None or trainer.device != dev:
+        raise RuntimeError(f"dp golden: no process group, or the trainer "
+                           f"is on {trainer.device}, not {dev}")
+    trainer.load_params(load_npz(GATE_CKPT))
+    b = len(g["image"]) // world.size
+    rows = slice(world.rank * b, (world.rank + 1) * b)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+    batch = {k: put(g[k]) for k in ("image", "boxes", "classes", "valid",
+                                    "masks_packed")}
+    steps = sorted({int(k[4:].split("_")[0]) for k in g if k.startswith("step")})
+    worst_loss, worst_norm = 0.0, 0.0
+    _zero_launch_counts()
+    for step in steps:
+        draws = {k: put(g[f"step{step}_{k}"])
+                 for k in ("rpn_pos", "rpn_neg", "roi_pos", "roi_neg")}
+        m = trainer.global_metrics(trainer.train_step(
+            batch, step_generator(cfg.solver.seed, step, dev),
+            sampler_draws=draws))
+        got = np.asarray([m[k] for k in LOSS_KEYS + ("total_loss",)])
+        want = g[f"step{step}_losses"]
+        rel = np.abs(got - want) / np.abs(want)
+        worst_loss = max(worst_loss, float(rel.max()))
+        if not (rel <= loss_rtol).all():
+            raise RuntimeError(f"dp golden rank {world.rank} step {step}: "
+                               f"losses {got} vs JAX {want}")
+        if step == 0:
+            names = flax_leaf_names(trainer.compute)
+            params = dict(trainer.compute.named_parameters())
+            for k, want_n in zip(g["grad_norm_keys"], g["grad_norms"]):
+                grad = world.all_reduce_sum(params[names[k]].grad.float()
+                                            .clone())
+                r = abs(float(grad.norm()) - want_n) / max(want_n, 1e-12)
+                worst_norm = max(worst_norm, r)
+                if r > norm_rtol:
+                    raise RuntimeError(f"dp golden: |summed grad| of {k} "
+                                       f"{float(grad.norm())} vs JAX {want_n}")
+    if cuda:
+        torch.backends.cudnn.allow_tf32 = True
+    return {"steps": len(steps), "worst_loss_rel": worst_loss,
+            "worst_grad_norm_rel": worst_norm,
+            "leaves": int(len(g["grad_norm_keys"])),
+            "launches": _launch_counts(),
+            "masters_sha256": _masters_digest(trainer.model)}
+
+
+def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
+             timed: int) -> dict:
+    """One rank of full-width data-parallel training: the default
+    ``Config()`` (R50-FPN-256, bf16 compute, f32 masters, 800×800) from
+    seeded weights over the 12 gate-split images staged on the rank's
+    device, at a global batch of ``per_rank`` × ranks, through
+    ``Trainer.fit`` (``warmup`` steps, then ``timed`` with CUDA events
+    around each phase of a step, the gradient all-reduce included).
+    Launch counts are zeroed just before and read just after and must be
+    B1 2 a step, B1-bwd 2 and B2 1; every master must be finite."""
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.data.classes import ClassRegistry
+    from uwcv_tpu_torch.data.loader import TrainLoader
+    from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
+    from uwcv_tpu_torch.engine.trainer import Trainer
+
+    cfg = Config()
+    cfg.output_dir = os.path.join(out_dir, "train")
+    cfg.solver.checkpoint_period = 0
+    cfg.solver.ims_per_batch = per_rank * torch.distributed.get_world_size()
+    registry = ClassRegistry.load(os.path.join(GATE_SPLIT, "classes.csv"))
+    dicts = get_superannotate_dicts(os.path.join(GATE_SPLIT, "Test"),
+                                    registry=registry)
+    trainer = Trainer(cfg, device=dev)
+    world = trainer.world
+    if world is None or trainer.device != dev:
+        raise RuntimeError(f"dp train: no process group, or the trainer is "
+                           f"on {trainer.device}, not {dev}")
+    cfg = trainer.cfg
+    trainer.load_params(seeded_flax_params(cfg.model, 0))
+    loader = TrainLoader(dicts, cfg, seed=cfg.solver.seed,
+                         process_index=world.rank, process_count=world.size)
+    dd = loader.device_dataset(dev)
+    if dd is None:
+        raise RuntimeError("the gate split does not fit the device budget")
+    batches = loader.index_batches()
+    fit = lambda n: trainer.fit(batches, max_iter=trainer.step + n,
+                                log_fn=lambda *_: None, device_dataset=dd)
+    cuda = dev.type == "cuda"
+    sync = lambda: torch.cuda.synchronize(dev) if cuda else None
+    _zero_launch_counts()
+    fit(warmup)
+    trainer.marks = [] if cuda else None
+    sync()
+    t0 = time.perf_counter()
+    fit(timed)
+    sync()
+    wall = time.perf_counter() - t0
+    marks, trainer.marks = trainer.marks or [], None
+    launches = _launch_counts()
+    n = warmup + timed
+    want = {"roi_align_windows": 2 * n, "roi_align_windows_backward": 2 * n,
+            "nms_greedy": n}
+    if launches != want:
+        raise RuntimeError(f"dp train rank {world.rank}: launches "
+                           f"{launches}, expected {want}")
+    if not all(torch.isfinite(p).all() for p in trainer.model.parameters()):
+        raise RuntimeError(f"dp train rank {world.rank}: a master weight is "
+                           f"not finite")
+    split, prev = {}, None
+    for name, ev in marks:
+        if prev is not None and name != "start":
+            split[name] = split.get(name, 0.0) + prev.elapsed_time(ev) / timed
+        prev = ev
+    rec = {"launches": launches, "steps": n, "timed": timed,
+           "global_batch": cfg.solver.ims_per_batch, "wall_s": wall,
+           "split_ms": split, "masters_sha256": _masters_digest(trainer.model),
+           "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                        if cuda else 0.0)}
+    if trainer.is_writer:
+        with open(os.path.join(cfg.output_dir, "metrics.json")) as f:
+            metrics = [json.loads(line) for line in f]
+        losses = [m[k] for m in metrics for k in LOSS_KEYS + ("total_loss",)]
+        if metrics[-1]["iteration"] != n or not np.isfinite(losses).all():
+            raise RuntimeError(f"dp train: logged {metrics}")
+        rec["ms_per_step"] = metrics[-1]["time_per_iter"] * 1e3
+        rec["total_loss_first_last"] = [metrics[0]["total_loss"],
+                                        metrics[-1]["total_loss"]]
+    return rec
+
+
+def dp_rank(rank: int, world: int, init: str, backend: str, device: str,
+            phases: tuple, out_dir: str, train_shape: tuple) -> None:
+    """A rank of ``run_ranks``: joins the group on its device (the CPU,
+    ``cuda:rank`` under NCCL, ``cuda:0`` for gloo ranks sharing one card),
+    runs ``phases`` and writes their records to ``rank<r>.json``."""
+    from uwcv_tpu_torch.config import ParallelConfig
+    from uwcv_tpu_torch.parallel.mesh import initialize_multi_host
+
+    if device == "cpu":
+        torch.set_num_threads(2)
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    initialize_multi_host(ParallelConfig(
+        multi_host=True, coordinator_address=init, num_processes=world,
+        process_id=rank, init_timeout_s=300), dev, backend=backend)
+    try:
+        rec = {"device": str(dev), "backend": backend}
+        if "golden" in phases:
+            rec["golden"] = dp_golden(dev, out_dir)
+        if "train" in phases:
+            rec["train"] = dp_train(dev, out_dir, *train_shape)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def run_ranks(world: int, backend: str, device: str, phases: tuple,
+              out_dir: str, timeout: float, train_shape: tuple = DP_SHARED
+              ) -> list:
+    """``world`` processes of ``dp_rank`` (spawned, a ``file://``
+    rendezvous under ``out_dir``), joined within ``timeout`` seconds: a
+    rank that fails or hangs fails the call, and every rank is stopped.
+    → each rank's record, in rank order; the masters must be
+    bit-identical across ranks after every phase."""
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    init = "file://" + os.path.join(out_dir, "rendezvous")
+    ctx = mp.start_processes(
+        dp_rank, args=(world, init, backend, device, tuple(phases), out_dir,
+                       tuple(train_shape)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} {backend} ranks on {device} "
+                                   f"still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    for phase in phases:
+        digests = {rec[phase]["masters_sha256"] for rec in recs}
+        if len(digests) != 1:
+            raise RuntimeError(f"{phase}: the ranks' masters differ")
+    return recs
+
+
+def _topology(n: int) -> str:
+    """What the card's machine says of the links between the first ``n``
+    cards: ``nvidia-smi topo -m`` and ``nvlink --status`` (a machine may
+    refuse either) and CUDA peer access between each pair."""
+    out = []
+    for cmd in (["nvidia-smi", "topo", "-m"],
+                ["nvidia-smi", "nvlink", "--status", "-i", "0"]):
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=60)
+        text = (proc.stdout + proc.stderr).strip().splitlines()
+        out.append(f"  $ {' '.join(cmd)} (exit {proc.returncode}): "
+                   + " | ".join(line.strip() for line in text[:n + 20]))
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in range(n) for j in range(n) if i != j}
+    out.append(f"  CUDA peer access: {peer}")
+    return "\n".join(out)
+
+
+def run_data_parallel(n_cards: int) -> dict:
+    """[dp golden] and [dp train]: two gloo ranks on ``cuda:0`` (the
+    golden, and on one card the full-width training at global batch 2,
+    10 steps: two ranks share the card, a correctness run, not a rate);
+    with two or more cards also two NCCL ranks on ``cuda:0`` and
+    ``cuda:1`` for the golden and one NCCL rank per card for the
+    full-width training at global batch 2 × cards, 2 + 20 steps."""
+    work = os.path.join(WORK, "dp")
+    out = {"golden": {}, "train": {}}
+    phases = ("golden", "train") if n_cards == 1 else ("golden",)
+    recs = run_ranks(2, "gloo", "cuda", phases, os.path.join(work, "gloo"),
+                     timeout=600)
+    out["golden"]["gloo, 2 ranks on cuda:0"] = recs
+    if n_cards == 1:
+        out["train"]["gloo, 2 ranks share cuda:0"] = recs
+        log("  [dp] one card: the NCCL runs (cuda:0 + cuda:1; one rank per "
+            "card) need two cards and are skipped")
+    else:
+        log("  links between the cards used:\n" + _topology(n_cards))
+        out["golden"]["nccl, cuda:0 + cuda:1"] = run_ranks(
+            2, "nccl", "cuda", ("golden",), os.path.join(work, "nccl2"),
+            timeout=600)
+        out["train"][f"nccl, {n_cards} ranks, one a card"] = run_ranks(
+            n_cards, "nccl", "cuda", ("train",),
+            os.path.join(work, f"nccl{n_cards}"), timeout=900,
+            train_shape=DP_CARDS)
+    for name, recs in out["golden"].items():
+        g = [r["golden"] for r in recs]
+        log(f"  dp golden ({name}): {g[0]['steps']} SGD steps, all-reduced "
+            f"losses within {max(x['worst_loss_rel'] for x in g):.2e} rel "
+            f"of JAX's global batch, {g[0]['leaves']} step-0 summed "
+            f"gradient norms within "
+            f"{max(x['worst_grad_norm_rel'] for x in g):.2e}; masters "
+            f"bit-identical across ranks; launches per rank "
+            f"{[x['launches'] for x in g]}")
+    for name, recs in out["train"].items():
+        t = [r["train"] for r in recs]
+        ms = t[0]["ms_per_step"]
+        red = t[0]["split_ms"].get("gradient all-reduce", 0.0)
+        shared = name.startswith("gloo")
+        log(f"  dp train full width R50-FPN-256 bf16 ({name}): global batch "
+            f"{t[0]['global_batch']}, {ms:.1f} ms/step, "
+            f"{t[0]['global_batch'] * 1e3 / ms:.2f} img/s "
+            + ("(two ranks share one card: a correctness run, not a rate) "
+               if shared else "")
+            + f"over {t[0]['timed']} steps after "
+            f"{t[0]['steps'] - t[0]['timed']} warm-up"
+            f" (rank 0's host clock, Trainer's time_per_iter); gradient "
+            f"all-reduce {red:.2f} ms/step on rank 0 ({red / ms:.1%} of a "
+            f"step, CUDA events around it: the wait for the slowest rank "
+            f"included); masters bit-identical; total loss "
+            f"{t[0]['total_loss_first_last']}; launches per rank "
+            f"{[x['launches'] for x in t]}; peak "
+            f"{max(x['peak_gib'] for x in t):.2f} GiB")
+        log("  dp train step split, rank 0 (CUDA events, ms/step): "
+            + json.dumps({k: round(v, 3) for k, v in t[0]["split_ms"].items()}))
+    return out
+
+
+def _dp_launches(recs: dict, phase: str) -> dict:
+    """Launch counts summed over every rank of every run of ``phase``."""
+    total = {}
+    for runs in recs[phase].values():
+        for rec in runs:
+            for k, v in rec[phase]["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def run_mesh_predict(devices: list) -> dict:
+    """[mesh predict]: the full-width model (R50-FPN-256 bf16, seeded)
+    over a mesh of ``devices`` (``[cuda:0, cuda:0]`` on one card, every
+    card otherwise).  A batch of 8 against the single-device predictor on
+    each device's slice (valid, classes and packed masks equal; boxes and
+    scores bit-equal, else within the export phase's tolerances, said
+    which); then ``run_batch_inference`` over 16 TIFFs as the folder
+    phase's (``write_folder_tiffs``) at batch 5 (16 = 3 × 5 + 1: every chunk is
+    padded to a multiple of the data axis, the tail most).  Launch counts
+    are zeroed just before each mesh run: B1 and B2 2 a batch on each
+    device."""
+    from uwcv_tpu_torch.config import Config, ParallelConfig
+    from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.parallel.mesh import batch_sharding, build_mesh
+
+    mesh = build_mesh(ParallelConfig(), devices=devices)
+    sync = lambda: [torch.cuda.synchronize(dev) for dev in mesh.devices[:, 0]
+                    if dev.type == "cuda"]
+    d = len(devices)
+    cfg = Config()
+    cfg.model.roi_score_thresh_test = 0.0
+    cfg.output_dir = os.path.join(WORK, "mesh_out")
+    params = seeded_flax_params(cfg.model, 0)
+    pred = Predictor(cfg, params, mesh=mesh)
+    single = Predictor(cfg, params, device=devices[0])
+    rng = np.random.default_rng(3)
+    images = [np.repeat(rng.integers(0, 256, (1024, 1280, 1), dtype=np.uint8),
+                        3, axis=-1) for _ in range(MESH_BATCH)]
+    pred.predict_batch(images)                  # warm-up
+    sync()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    got = pred.predict_batch(images)
+    sync()
+    batch_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    want_l = {"roi_align_windows": 2 * d, "roi_align_windows_backward": 0,
+              "nms_greedy": 2 * d}
+    if launches != want_l:
+        raise RuntimeError(f"mesh predict launches {launches}, expected "
+                           f"{want_l}")
+    want = [i for s in batch_sharding(mesh, MESH_BATCH)
+            for i in single.predict_batch(images[s])]
+    exact = True
+    for k in OUT_FIELDS:
+        a = np.stack([getattr(i, k) for i in want])
+        b = np.stack([getattr(i, k) for i in got])
+        if k in ("boxes", "scores"):
+            if a.shape == b.shape and np.array_equal(a, b):
+                continue
+            exact = False
+            atol = 1e-4 if k == "boxes" else 1e-5
+            if a.shape != b.shape or not np.allclose(b, a, rtol=1e-5,
+                                                     atol=atol):
+                raise RuntimeError(f"mesh predict: {k} differs from the "
+                                   f"single device's by up to "
+                                   f"{np.abs(b - a).max()}")
+        elif not np.array_equal(a, b):
+            raise RuntimeError(f"mesh predict: {k} differs from the single "
+                               f"device's")
+    log(f"  mesh predict, R50-FPN-256 bf16 over {devices}, batch "
+        f"{MESH_BATCH}: valid, classes and masks equal to the single-device "
+        f"predictor's on each slice of {MESH_BATCH // d}; boxes and scores "
+        + ("bit-equal" if exact else "within rtol 1e-5 / atol 1e-4 (boxes), "
+           "1e-5 (scores), not bit-equal")
+        + f"; {batch_s * 1e3:.1f} ms for the batch; launches {launches}")
+    n_images = 16
+    image_dir = write_folder_tiffs(os.path.join(WORK, "mesh_tiff"), n_images)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    result = run_batch_inference(cfg, pred, image_dir=image_dir,
+                                 batch_size=MESH_FOLDER_BATCH,
+                                 with_measurements=True, with_plots=False,
+                                 progress=lambda *_: None)
+    sync()
+    wall = time.perf_counter() - t0
+    folder_launches = _launch_counts()
+    chunks = -(-n_images // MESH_FOLDER_BATCH)
+    want_f = {"roi_align_windows": 2 * chunks * d,
+              "roi_align_windows_backward": 0, "nms_greedy": 2 * chunks * d}
+    if folder_launches != want_f:
+        raise RuntimeError(f"mesh folder launches {folder_launches}, "
+                           f"expected {want_f}")
+    if result["num_images"] != n_images or \
+            len(result["predictions"]) != n_images:
+        raise RuntimeError(f"mesh folder: {len(result['predictions'])} of "
+                           f"{n_images} images predicted")
+    rows = check_rows_decode(result)
+    sizes = [min(MESH_FOLDER_BATCH, n_images - s)
+             for s in range(0, n_images, MESH_FOLDER_BATCH)]
+    log(f"  mesh folder: {n_images} TIFFs at batch {MESH_FOLDER_BATCH} "
+        f"(chunks {sizes}, each padded to a multiple of {d}): "
+        f"{n_images / wall:.3f} img/s (host clock over the call), {rows} "
+        f"RLE rows decode to their masks; launches {folder_launches}")
+    total = {k: launches[k] + folder_launches[k] for k in launches}
+    return {"devices": devices, "bit_equal": exact, "batch_ms": batch_s * 1e3,
+            "folder_img_per_s": n_images / wall, "rows": rows,
+            "launches": total}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -1909,6 +2362,22 @@ def main(argv=None) -> int:
     log("[export] full width: export, serve from the artifact")
     export = run_export(dev)
 
+    n_cards = torch.cuda.device_count()
+    log(f"[dp golden] + [dp train] data-parallel training over processes "
+        f"({n_cards} card{'s' if n_cards > 1 else ''})")
+    t0 = time.perf_counter()
+    dp = run_data_parallel(n_cards)
+    log(f"  [dp golden] + [dp train]: {time.perf_counter() - t0:.1f} s")
+
+    log("[mesh predict] full width over a mesh of devices")
+    t0 = time.perf_counter()
+    mesh = run_mesh_predict(["cuda:0", "cuda:0"] if n_cards == 1
+                            else [f"cuda:{i}" for i in range(n_cards)])
+    log(f"  [mesh predict]: {time.perf_counter() - t0:.1f} s; mesh folder "
+        f"{mesh['folder_img_per_s']:.3f} img/s beside the folder phase's "
+        f"{folder['img_per_s']:.3f} (one device, batch 8); the mesh's batch "
+        f"of 8 {8e3 / mesh['batch_ms']:.2f} img/s (one batch, host clock)")
+
     against = {}
     if args.against:
         log(f"[against] kernel wrappers of {args.against} against these")
@@ -1917,7 +2386,10 @@ def main(argv=None) -> int:
 
     phases = {"full width": launches, "folder": folder["launches"],
               "train": train["launches"], "pth import": pth["launches"],
-              "hpo": hpo["launches"], "export": export["launches"]}
+              "hpo": hpo["launches"], "export": export["launches"],
+              "dp golden": _dp_launches(dp, "golden"),
+              "dp train": _dp_launches(dp, "train"),
+              "mesh predict": mesh["launches"]}
 
     def counts(name):
         by_phase = {k: v.get(name, 0) for k, v in phases.items()}
@@ -1961,7 +2433,8 @@ def main(argv=None) -> int:
     log(json.dumps({"folder": folder, "folder_golden": folder_golden,
                     "eval": gate_eval, "train_golden": train_golden,
                     "train": train, "pth_import": pth, "hpo": hpo,
-                    "export": export},
+                    "export": export, "data_parallel": dp,
+                    "mesh_predict": mesh},
                    default=str))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

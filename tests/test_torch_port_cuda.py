@@ -517,3 +517,25 @@ def test_exported_program_on_card_matches_live_and_launches_kernels(
         np.testing.assert_allclose(b.boxes, a.boxes, rtol=1e-5, atol=1e-4)
         np.testing.assert_allclose(b.scores, a.scores, rtol=1e-5, atol=1e-5)
     assert sum(int(a.valid.sum()) for a in want) > 0
+
+
+def test_data_parallel_training_and_mesh_predict_over_cards(second_card):
+    """``chip_smoke.py``'s data-parallel phases over every card: two gloo
+    ranks on cuda:0 and two NCCL ranks on cuda:0 and cuda:1 hold the JAX
+    global-batch train golden, one NCCL rank per card trains the full-width
+    model (masters bit-identical, every kernel on every rank), and the
+    full-width predictor over a mesh of every card equals the single-device
+    one on each card's slice and pads a folder's chunks to the mesh."""
+    import chip_smoke
+    from uwcv_tpu_torch import kernels
+
+    kernels.build()
+    n = torch.cuda.device_count()
+    dp = chip_smoke.run_data_parallel(n)
+    assert set(dp["golden"]) == {"gloo, 2 ranks on cuda:0",
+                                 "nccl, cuda:0 + cuda:1"}
+    (runs,) = dp["train"].values()
+    assert [r["device"] for r in runs] == [f"cuda:{i}" for i in range(n)]
+    assert runs[0]["train"]["global_batch"] == 2 * n
+    rec = chip_smoke.run_mesh_predict([f"cuda:{i}" for i in range(n)])
+    assert rec["launches"]["roi_align_windows"] > 0

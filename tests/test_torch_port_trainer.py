@@ -301,12 +301,22 @@ def test_prepare_train_sample_matches_jax(dicts, monkeypatch, size):
         assert int(want["num_instances"]) > 0
 
 
-def test_index_batches_match_jax(dicts):
+@pytest.mark.parametrize("process_index, process_count, batch",
+                         [(0, 1, 2), (0, 2, 2), (1, 2, 2), (2, 3, 6),
+                          (3, 4, 8)])
+def test_index_batches_match_jax(dicts, process_index, process_count, batch):
+    """The index stream of one process of ``process_count``, at a global
+    batch of ``batch``, is the JAX loader's (one process: the whole
+    stream)."""
     jcfg, cfg = JaxConfig(), Config()
-    want = j_loader.TrainLoader(dicts, jcfg, seed=5).index_batches()
-    got = TrainLoader(dicts, cfg, seed=5).index_batches()
+    jcfg.solver.ims_per_batch = cfg.solver.ims_per_batch = batch
+    kw = {"process_index": process_index, "process_count": process_count}
+    want = j_loader.TrainLoader(dicts, jcfg, seed=5, **kw).index_batches()
+    got = TrainLoader(dicts, cfg, seed=5, **kw).index_batches()
     for _ in range(15):
-        np.testing.assert_array_equal(next(got), next(want))
+        g = next(got)
+        assert len(g) == batch // process_count
+        np.testing.assert_array_equal(g, next(want))
 
 
 def test_skip_advances_both_loader_paths(dicts):

@@ -75,29 +75,117 @@ def _load_dataset(cfg: Config, split: str, data_dir: Optional[str]):
 
 
 def cmd_train(args) -> int:
+    """Train over every visible card, as the JAX verb does: under
+    ``torchrun`` this process is one rank of the group; launched alone on
+    a host with several cards and a data axis of -1
+    (``parallel.mesh_shape``), it starts one worker per card.  On the CPU,
+    ``-o parallel.num_processes=N`` starts N gloo workers."""
     cfg = _build_cfg(args)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        cfg.parallel.multi_host = True          # a rank under torchrun
+        return _train(cfg, args)
+    world = _local_world(cfg, args.device)
+    if world == 1:
+        return _train(cfg, args)
+    import torch.multiprocessing as mp
+
+    if args.device != "cpu":
+        # every rank would run nvcc: build once here
+        from uwcv_tpu_torch import kernels
+
+        kernels.build()
+    par = cfg.parallel
+    par.multi_host, par.num_processes = True, world
+    if not par.coordinator_address:
+        par.coordinator_address = f"127.0.0.1:{_free_port()}"
+    mp.spawn(_train_worker, args=(cfg, args), nprocs=world)
+    return 0
+
+
+def _local_world(cfg: Config, device: str) -> int:
+    """The processes ``train`` starts when launched alone: one per device
+    of the data axis (``parallel.mesh_shape[0]``, -1 for every card; a
+    named card, ``cuda:1``, is one), or ``parallel.num_processes`` on the
+    CPU."""
+    from uwcv_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return max(1, cfg.parallel.num_processes)
+    if dev.index is not None:
+        return 1
+    import torch
+
+    d, n = cfg.parallel.mesh_shape[0], torch.cuda.device_count()
+    if d > n:
+        raise ValueError(f"parallel.mesh_shape asks for {d} cards, "
+                         f"{n} visible")
+    return n if d == -1 else d
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _train_worker(rank: int, cfg: Config, args) -> None:
+    cfg.parallel.process_id = rank
+    _train(cfg, args)
+
+
+def _train(cfg: Config, args) -> int:
+    """One process of ``train``: joins the process group when
+    ``parallel.multi_host`` is set, then trains its share."""
+    import torch
+
     from uwcv_tpu_torch.data.loader import TrainLoader
     from uwcv_tpu_torch.engine.trainer import Trainer
+    from uwcv_tpu_torch.parallel.mesh import (
+        initialize_multi_host,
+        local_rank,
+    )
+    from uwcv_tpu_torch.utils.device import resolve_device
 
-    trainer = Trainer(cfg, device=args.device)      # raises before any work
-    dicts = _load_dataset(cfg, "Train", args.data_dir)
-    print(f"train dataset: {len(dicts)} images, output: {cfg.output_dir}")
-    trainer.resume_or_load(resume=args.resume)
-    loader = TrainLoader(dicts, cfg, seed=cfg.solver.seed)
-    # a resumed run picks the index stream up where the checkpoint left it
-    loader.skip(trainer.step)
-    dd = loader.device_dataset(trainer.device)
-    if dd is not None:
-        # a fine-tune-sized dataset on the device: a step ships its [B]
-        # index vector only
-        trainer.fit(loader.index_batches(), device_dataset=dd)
-    else:
-        loader.start()
-        try:
-            trainer.fit(iter(loader))
-        finally:
-            loader.stop()
-    print(f"done: {os.path.join(cfg.output_dir, 'model_final.npz')}")
+    dev = resolve_device(args.device)            # raises before any work
+    if cfg.parallel.multi_host:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", local_rank(cfg.parallel))
+        initialize_multi_host(cfg.parallel, dev)
+    try:
+        trainer = Trainer(cfg, device=dev)
+        say = print if trainer.is_writer else (lambda *_: None)
+        dicts = _load_dataset(cfg, "Train", args.data_dir)
+        say(f"train dataset: {len(dicts)} images, output: {cfg.output_dir}"
+            + (f", {trainer.ranks} ranks" if trainer.ranks > 1 else ""))
+        trainer.resume_or_load(resume=args.resume)
+        loader = TrainLoader(dicts, cfg, seed=cfg.solver.seed,
+                             process_index=trainer.rank,
+                             process_count=trainer.ranks)
+        # a resumed run picks the index stream up where the checkpoint
+        # left it
+        loader.skip(trainer.step)
+        dd = loader.device_dataset(trainer.device)
+        if dd is not None:
+            # a fine-tune-sized dataset on the device: a step ships its
+            # [B] index vector only
+            trainer.fit(loader.index_batches(), device_dataset=dd,
+                        log_fn=say)
+        else:
+            loader.start()
+            try:
+                trainer.fit(iter(loader), log_fn=say)
+            finally:
+                loader.stop()
+        say(f"done: {os.path.join(cfg.output_dir, 'model_final.npz')}")
+    finally:
+        if cfg.parallel.multi_host:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
     return 0
 
 

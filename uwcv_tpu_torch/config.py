@@ -401,30 +401,32 @@ class MeasureConfig:
 
 @dataclass
 class ParallelConfig:
-    """Mesh / sharding (no counterpart in the single-GPU reference; §2c)."""
+    """Mesh and data parallelism (``parallel/mesh.py``; no counterpart in
+    the single-GPU reference)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
-    # (data, model) mesh shape; -1 = all available devices on the data axis
+    # (data, model) mesh shape; -1 = every local device on the data axis
+    # (the ``train`` verb starts a process per card); a model axis above 1
+    # (spatial sharding) is not ported and raises
     mesh_shape: Tuple[int, int] = (-1, 1)
-    # --- multi-host (DCN) scaffolding (SURVEY §2c comm-backend row) ---
-    # True: call jax.distributed.initialize() before device queries, so
-    # jax.devices() returns the GLOBAL device set of a pod slice and the mesh
-    # spans hosts (collectives ride ICI within a slice, DCN across);
-    # per-process input sharding comes from TrainLoader(process_index/count)
-    # + parallel.mesh.shard_batch, which assembles global arrays from
-    # process-local shards.
+    # True: join a torch.distributed process group
+    # (parallel.mesh.initialize_multi_host) before training; each rank
+    # then takes its share of the global batch through
+    # TrainLoader(process_index/process_count), and the gradients, loss
+    # denominators and logged losses are summed over the ranks
     multi_host: bool = False
-    # "host:port" of process 0's coordinator; "" = infer from the cluster
-    # environment (TPU pods auto-detect; explicit for CPU/localhost tests)
+    # "host:port" of rank 0 (a tcp:// rendezvous), or a URL of its own
+    # (file://...); "" = torchrun's env:// (MASTER_ADDR/MASTER_PORT)
     coordinator_address: str = ""
+    # world size; 1 = from WORLD_SIZE (torchrun), else one process.  On the
+    # CPU the train verb starts this many gloo workers
     num_processes: int = 1
-    process_id: int = -1          # -1: from JAX_PROCESS_ID env (or cluster)
-    # coordination-service tolerances (seconds), forwarded to
-    # jax.distributed.initialize.  Defaults match jax 0.9 (300/100/300);
-    # raise them on slow/contended hosts where a compile can outlast a
-    # heartbeat window or one process reaches the shutdown barrier while a
-    # peer is still compiling (observed on a contended 1-core CI host).
+    process_id: int = -1          # -1: from RANK (torchrun)
+    # seconds: init_timeout_s is init_process_group's timeout, bounding
+    # the rendezvous and every collective; the heartbeat and shutdown
+    # tolerances of jax.distributed have no torch.distributed counterpart
+    # and are not read
     init_timeout_s: int = 300
     heartbeat_timeout_s: int = 100
     shutdown_timeout_s: int = 300

@@ -162,12 +162,32 @@ class TrainLoader:
     ``data.cache_prepared_mb`` when ``data.cache_prepared`` is on."""
 
     def __init__(self, dataset: List[Dict], cfg: Config, seed: int = 0,
-                 num_workers: Optional[int] = None):
+                 num_workers: Optional[int] = None,
+                 process_index: int = 0, process_count: int = 1):
+        """``process_index`` / ``process_count``: the rank's share of a
+        data-parallel run (``parallel/mesh.py``).  Every process draws the
+        same permutation and takes ``order[process_index::process_count]``;
+        ``solver.ims_per_batch`` stays the global batch, of which each
+        process yields its ``ims_per_batch // process_count`` rows."""
         if not dataset:
             raise ValueError("empty dataset")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} not in "
+                             f"[0, {process_count})")
+        if len(dataset) < process_count:
+            # a process with no sample would spin in _index_stream forever
+            raise ValueError(
+                f"dataset has {len(dataset)} samples < process_count "
+                f"{process_count}: every process needs at least one")
+        if process_count > 1 and cfg.solver.ims_per_batch % process_count:
+            raise ValueError(
+                f"global batch {cfg.solver.ims_per_batch} must divide by "
+                f"process_count {process_count}")
         self.dataset = dataset
         self.cfg = cfg
-        self.batch_size = cfg.solver.ims_per_batch
+        self.batch_size = cfg.solver.ims_per_batch // process_count
+        self.process_index = process_index
+        self.process_count = process_count
         self.num_workers = max(1, num_workers if num_workers is not None
                                else cfg.data.num_workers)
         # dataset-tightened gt capacity: the most annotations of a record,
@@ -219,7 +239,8 @@ class TrainLoader:
 
     def _index_stream(self) -> Iterator[int]:
         while True:
-            for idx in self.rng.permutation(len(self.dataset)):
+            order = self.rng.permutation(len(self.dataset))
+            for idx in order[self.process_index::self.process_count]:
                 yield int(idx)
 
     def _next_batch_indices(self) -> List[int]:

@@ -142,8 +142,14 @@ def run_batch_inference(
             images = nxt.result()
             if ci + 1 < len(chunks):
                 nxt = pool.submit(decode, chunks[ci + 1])
+            run_images = images
+            if predictor.mesh is not None:
+                # a batch over a mesh must tile its data axis: the tail
+                # repeats its last image, and consume() zips that away
+                d = predictor.mesh.devices.shape[0]
+                run_images = images + [images[-1]] * (-len(images) % d)
             pulled = predictor.start_pull(
-                predictor.predict_batch_device(images, block=False))
+                predictor.predict_batch_device(run_images, block=False))
             if pending is not None:
                 consume(*pending)
             pending = (chunk, images, pulled)

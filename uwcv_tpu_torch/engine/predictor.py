@@ -1,19 +1,26 @@
-"""Predictor: folder/batch inference on one GPU (port of
-``uwcv_tpu/engine/predictor.py``).
+"""Predictor: folder/batch inference on one GPU, or data-parallel over a
+mesh of GPUs (port of ``uwcv_tpu/engine/predictor.py``).
 
 The host decodes, resizes (antialiased bilinear, no PIL) and pads a batch;
 the device runs the optional resample, Mask R-CNN inference, the head-
 resolution mask cleanup, the full-canvas paste, overlap claim, min-pixel
 filter and bit-pack; the host pulls the valid prefix and builds padded
 ``Instances``.  ``Predictor.from_exported`` serves an exported program
-(``engine/export.py``) through the same host API.  Not ported yet: ``mesh``
-(multi-GPU).
+(``engine/export.py``) through the same host API.
+
+With a ``mesh`` (``parallel/mesh.py``) one process holds a replica of the
+model on each device of the data axis: a batch staged as one is split into
+contiguous slices, each device runs the device program on its slice from
+its own thread (the morphology loops wait on the host each pass, so one
+thread would serialize the devices), and the results merge in batch order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -25,6 +32,13 @@ from uwcv_tpu_torch.data.loader import load_image_rgb
 from uwcv_tpu_torch.models.rcnn import MaskRCNN, compute_dtype
 from uwcv_tpu_torch.ops.mask_paste import paste_masks, paste_select_pack
 from uwcv_tpu_torch.ops.morphology import clean_head_masks, remove_overlaps
+from uwcv_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    replicate,
+    shard_batch,
+    to_device,
+)
 from uwcv_tpu_torch.structures.instances import Instances
 from uwcv_tpu_torch.utils.device import (
     HostStages,
@@ -140,10 +154,15 @@ class Predictor:
 
     ``params`` is a flat ``/``-joined Flax param dict (``weights.load_npz``)
     or None to keep the model's own initialisation.  ``device`` defaults to
-    ``cuda`` and raises when there is none; tests pass ``device="cpu"``."""
+    ``cuda`` and raises when there is none; tests pass ``device="cpu"``.
+
+    ``mesh`` (``parallel/mesh.py::build_mesh``): a replica on each device
+    of its data axis, which replaces ``device``; a batch must then be a
+    multiple of the data axis (``run_batch_inference`` pads its tail)."""
 
     def __init__(self, cfg: Config, params=None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         bkt = cfg.input.canvas_bucket
         if bkt <= 0 or bkt % cfg.input.size_divisibility:
@@ -152,22 +171,31 @@ class Predictor:
                 f"size_divisibility={cfg.input.size_divisibility}, got {bkt}")
         # host seconds per stage, collected only when a caller sets it
         self.stages: Optional[HostStages] = None
-        self.device = resolve_device(device)
-        self.model = MaskRCNN(cfg.model)
-        self.model.to(device=self.device,
-                      dtype=compute_dtype(cfg.model)).eval()
+        self.mesh = mesh
+        self.devices = ([resolve_device(d) for d in mesh.devices[:, 0]]
+                        if mesh is not None else [resolve_device(device)])
+        self.device = self.devices[0]
+        model = MaskRCNN(cfg.model).to(dtype=compute_dtype(cfg.model)).eval()
+        self.replicas = (replicate(model, mesh) if mesh is not None
+                         else [model.to(self.device)])
+        self.model = self.replicas[0]
+        # a thread per device drives its replica
+        self._pool = (ThreadPoolExecutor(len(self.devices))
+                      if mesh is not None else None)
         if params is not None:
             self.set_params(params)
         self.pad_h, self.pad_w = cfg.input.pad_size_test
 
     def set_params(self, params) -> None:
-        """Swap flat Flax params into the existing model in place: it keeps
-        its dtype and device, and is not rebuilt.  HPO reuses one eval
-        predictor across trials this way."""
+        """Swap flat Flax params into the existing model (every replica of
+        a mesh) in place: it keeps its dtype and device, and is not
+        rebuilt.  HPO reuses one eval predictor across trials this way."""
         if self.model is None:
             raise ValueError("an exported program's weights are baked into "
                              "it: export again to change them")
-        self.model.load_state_dict(params_from_flax(params), strict=True)
+        state = params_from_flax(params)
+        for replica in self.replicas:
+            replica.load_state_dict(state, strict=True)
 
     @classmethod
     def from_exported(cls, cfg: Config, path: str,
@@ -183,8 +211,12 @@ class Predictor:
         self = cls.__new__(cls)
         self.cfg = cfg
         self.stages = None
+        self.mesh = None
         self.device = resolve_device(device)
+        self.devices = [self.device]
         self.model = None
+        self.replicas = []
+        self._pool = None
         self.pad_h, self.pad_w = cfg.input.pad_size_test
         self._run, self.exported_batch, self.exported_canvas = \
             load_exported(path, self.device)
@@ -193,13 +225,14 @@ class Predictor:
     # -------- device program --------
 
     def _run(self, images: torch.Tensor, scales: np.ndarray,
-             out_sizes: torch.Tensor, model_canvas=None):
+             out_sizes: torch.Tensor, model_canvas=None, model=None):
         """images [B,Hc,Wc,3|1] uint8 host-padded (on the device); scales
         [B] host floats; out_sizes [B,2] (true resized h, w) → (Detections,
         packed masks [B,D,H,W/8] uint8 | None, keep [B,D] bool).  The host
-        knows the scales, so it picks the unit-scale fast path itself."""
+        knows the scales, so it picks the unit-scale fast path itself.
+        ``model``: the replica to run (default the first)."""
         return device_program(
-            self.model, self.cfg, images,
+            model or self.model, self.cfg, images,
             torch.as_tensor(scales, dtype=torch.float32), out_sizes,
             model_canvas or (self.pad_h, self.pad_w),
             unit_scale=bool(np.all(np.asarray(scales) == 1.0)))
@@ -224,7 +257,10 @@ class Predictor:
     def stage_batch(self, images_rgb: Sequence[np.ndarray]):
         """Host-prep a batch and place it on the device → ``(device_ops,
         unmap)``; ``device_ops`` feeds ``_run``, ``unmap = (unmap_scales,
-        out_sizes)`` maps results back to original-image coordinates."""
+        out_sizes)`` maps results back to original-image coordinates.
+        Over a mesh the batch is staged as one (one canvas) and
+        ``device_ops`` is a list: each device's contiguous slice
+        (``batch_sharding``) on that device."""
         prepped = [self._prepare(im) for im in images_rgb]
         raw_h = max(p[0].shape[0] for p in prepped)
         raw_w = max(p[0].shape[1] for p in prepped)
@@ -247,25 +283,47 @@ class Predictor:
         # model canvas = bucketed max resized extent, never past the pad
         mch = min(bucket_up(int(out_sizes[:, 0].max()), bkt), self.pad_h)
         mcw = min(bucket_up(int(out_sizes[:, 1].max()), bkt), self.pad_w)
-        pin = self.device.type == "cuda"
-        put = lambda a: torch.from_numpy(a).pin_memory().to(
-            self.device, non_blocking=True) if pin else torch.from_numpy(a)
-        return ((put(batch), scales, put(out_sizes), (mch, mcw)),
-                ([p[2] for p in prepped], [p[3] for p in prepped]))
+        unmap = ([p[2] for p in prepped], [p[3] for p in prepped])
+        if self.mesh is None:
+            return ((to_device(batch, self.device), scales,
+                     to_device(out_sizes, self.device), (mch, mcw)), unmap)
+        shards = shard_batch({"images": batch, "out_sizes": out_sizes},
+                             self.mesh)
+        return ([(sh["images"], scales[s], sh["out_sizes"], (mch, mcw))
+                 for sh, s in zip(shards, batch_sharding(self.mesh,
+                                                          len(batch)))],
+                unmap)
 
     def predict_batch_device(self, images_rgb: Sequence[np.ndarray],
                              block: bool = True):
         """Run a batch, returning device-resident results: (Detections,
-        packed masks | None, keep, unmap scales, out sizes).  Waits for the
-        device to finish unless ``block=False``, which lets a caller
-        pipeline batches (``start_pull`` then ``to_instances``)."""
+        packed masks | None, keep, unmap scales, out sizes), over a mesh a
+        list of them, one a device in batch order.  Waits for the device
+        to finish unless ``block=False``, which lets a caller pipeline
+        batches (``start_pull`` then ``to_instances``)."""
         with host_stage(self.stages, "stage_batch"):
             device_ops, unmap = self.stage_batch(images_rgb)
         with host_stage(self.stages, "_run"):
-            dets, masks_packed, keep = self._run(*device_ops)
-        if block and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return dets, masks_packed, keep, unmap[0], unmap[1]
+            if self.mesh is None:
+                out = self._run(*device_ops) + unmap
+            else:
+                runs = [self._pool.submit(self._run_replica, i, ops)
+                        for i, ops in enumerate(device_ops)]
+                shards = batch_sharding(self.mesh, len(images_rgb))
+                out = [r.result() + (unmap[0][s], unmap[1][s])
+                       for r, s in zip(runs, shards)]
+        if block:
+            for dev in set(self.devices):
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+        return out
+
+    def _run_replica(self, i: int, ops):
+        """``_run`` of replica ``i`` on its device (a mesh's thread)."""
+        dev = self.devices[i]
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            return self._run(*ops, model=self.replicas[i])
 
     def predict_batch(self, images_rgb: Sequence[np.ndarray]) -> List[Instances]:
         """Run a batch and pull results to host Instances; images may have
@@ -281,17 +339,21 @@ class Predictor:
         i waits, in ``to_instances``, for batch i−1 alone: a copy enqueued
         after batch i would wait for all of batch i on the one stream.  The
         whole packed stack is copied (the valid prefix is not known without
-        a sync); ``to_instances`` unpacks only the valid prefix."""
+        a sync); ``to_instances`` unpacks only the valid prefix.  A mesh's
+        result gives a list, one a device."""
+        if isinstance(device_out, list):
+            return [self.start_pull(o) for o in device_out]
         dets, masks_packed, keep, scales, out_sizes = device_out
         fields = [dets.boxes, dets.scores, dets.classes, dets.valid & keep,
                   masks_packed]
         ready = None
-        if self.device.type == "cuda":
+        dev = dets.boxes.device
+        if dev.type == "cuda":
             fields = [None if t is None else torch.empty(
                 t.shape, dtype=t.dtype, pin_memory=True).copy_(
                     t, non_blocking=True) for t in fields]
             ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
+            ready.record(torch.cuda.current_stream(dev))
         mark(getattr(self.model, "marks", None), "d2h")
         return PulledBatch(*fields, scales, out_sizes, ready)
 
@@ -299,7 +361,10 @@ class Predictor:
         """Host Instances of a ``predict_batch_device`` result or of a
         ``start_pull`` of one (then waiting for that copy only); of the
         masks only the valid-slot prefix is unpacked (detection slots are
-        score-sorted)."""
+        score-sorted).  A mesh's pieces merge in batch order."""
+        if isinstance(out, list):
+            return [inst for piece in out
+                    for inst in self.to_instances(piece)]
         if not isinstance(out, PulledBatch):
             out = self.start_pull(out)
         if out.ready is not None:
@@ -348,19 +413,19 @@ class Predictor:
 
 
 def load_predictor(cfg: Config, weights: Optional[str] = None,
-                   device: Optional[Union[str, torch.device]] = None
-                   ) -> Predictor:
-    """Build a predictor from ``weights`` or ``cfg.weights``: a
-    ``save_params_npz`` checkpoint or a torch ``.pth`` state dict mapped
-    onto the fresh model's params (``engine/checkpoint.py::load_weights``).
-    A Trainer-written ``config.json`` beside the file (or in its parent
-    directory) supplies the MODEL section first, so the graph matches the
-    trained params."""
+                   device: Optional[Union[str, torch.device]] = None,
+                   mesh: Optional[Mesh] = None) -> Predictor:
+    """Build a predictor (over ``mesh`` when given) from ``weights`` or
+    ``cfg.weights``: a ``save_params_npz`` checkpoint or a torch ``.pth``
+    state dict mapped onto the fresh model's params
+    (``engine/checkpoint.py::load_weights``).  A Trainer-written
+    ``config.json`` beside the file (or in its parent directory) supplies
+    the MODEL section first, so the graph matches the trained params."""
     path = weights or cfg.weights
     if not path:
-        return Predictor(cfg, None, device=device)
+        return Predictor(cfg, None, device=device, mesh=mesh)
     adopt_checkpoint_model_cfg(cfg, os.path.dirname(os.path.abspath(path)))
-    pred = Predictor(cfg, None, device=device)
+    pred = Predictor(cfg, None, device=device, mesh=mesh)
     pred.set_params(load_weights(path, pred.model, cfg.model))
     return pred
 

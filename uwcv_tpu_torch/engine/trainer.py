@@ -1,4 +1,5 @@
-"""Trainer: fine-tuning on one GPU (port of ``uwcv_tpu/engine/trainer.py``).
+"""Trainer: fine-tuning on one GPU, or data-parallel with one process per
+GPU (port of ``uwcv_tpu/engine/trainer.py``).
 
 - parameters are f32 masters; the forward and backward run on a working
   copy in the compute dtype (``model.dtype``), refreshed from the masters
@@ -21,10 +22,23 @@ Each step's random draws (augmentation, then the two samplers) come from a
 generator seeded by (``solver.seed``, step).  A resumed run whose batches
 skip the steps already taken (``TrainLoader.skip``, as the ``train`` verb
 does) therefore repeats an uninterrupted one.
+
+Data parallelism (a process group of several ranks,
+``parallel/mesh.py::initialize_multi_host``): each rank trains on its rows
+of the global batch (``TrainLoader(process_index, process_count)``), draws
+for the whole global batch and keeps its rows, and computes its share of
+the global loss (``MaskRCNN.forward_train(world=...)``).  The trainable
+gradients are summed over the ranks in one f32 buffer before weight decay
+and clipping, so every rank applies the same update and the masters stay
+bit-identical; rank 0's weights, traces and step are broadcast after every
+load.  The logged losses are the global ones; rank 0 writes the metrics,
+TensorBoard, checkpoints and ``config.json`` while the others wait.  Each
+rank keeps the three CUDA kernels on its own card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -35,11 +49,16 @@ import numpy as np
 import torch
 
 from uwcv_tpu_torch.config import Config
-from uwcv_tpu_torch.data.augment import augment_batch, unpack_bitmasks
+from uwcv_tpu_torch.data.augment import (
+    augment_batch,
+    augment_draws,
+    unpack_bitmasks,
+)
 from uwcv_tpu_torch.data.loader import TRAIN_KEYS
 from uwcv_tpu_torch.engine import checkpoint as ckpt
 from uwcv_tpu_torch.engine.lr_schedule import warmup_multistep
 from uwcv_tpu_torch.models.rcnn import MaskRCNN, compute_dtype
+from uwcv_tpu_torch.parallel.mesh import Mesh, data_axis
 from uwcv_tpu_torch.utils.device import mark, resolve_device
 from uwcv_tpu_torch.utils.tb_writer import SummaryWriter
 from uwcv_tpu_torch.weights import (
@@ -84,30 +103,52 @@ class Trainer:
     """trainer = Trainer(cfg); trainer.resume_or_load(); trainer.fit(...)
 
     Runs on CUDA unless ``device="cpu"`` is passed; without a card the
-    default raises."""
+    default raises.  In an initialized process group of several ranks it
+    trains data-parallel (module docstring); ``mesh`` then places the
+    ranks, rank r on ``mesh.devices[r, 0]`` unless ``device`` is given,
+    and its data axis must equal the rank count."""
 
     def __init__(self, cfg: Config,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[Mesh] = None):
         # own copy: later edits of the caller's cfg do not reach the run
         self.cfg = cfg = copy.deepcopy(cfg)
+        self.world = data_axis()
+        self.rank, self.ranks = ((self.world.rank, self.world.size)
+                                 if self.world else (0, 1))
+        if mesh is not None:
+            if mesh.devices.shape[0] != self.ranks:
+                raise ValueError(
+                    f"a trainer's mesh puts one rank on each device of its "
+                    f"data axis: {mesh.devices.shape[0]} devices for "
+                    f"{self.ranks} ranks (launch one process per device)")
+            if device is None:
+                device = mesh.devices[self.rank, 0]
+        self.mesh = mesh
         self.device = resolve_device(device)
+        self.is_writer = self.rank == 0
         self.schedule = warmup_multistep(cfg.solver)
         # (name, CUDA event) per step phase, recorded while a caller sets
         # a list here
         self.marks: Optional[list] = None
         self.init_state()
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        # the full config beside the checkpoints, so a consumer rebuilds
-        # the matching model
-        with open(os.path.join(cfg.output_dir, "config.json"), "w") as f:
-            f.write(cfg.dumps())
+        if self.is_writer:
+            os.makedirs(cfg.output_dir, exist_ok=True)
+            # the full config beside the checkpoints, so a consumer
+            # rebuilds the matching model
+            with open(os.path.join(cfg.output_dir, "config.json"), "w") as f:
+                f.write(cfg.dumps())
+        self._barrier()
 
     # -------- state --------
 
     def _build(self, model: MaskRCNN) -> None:
-        """Install ``model`` as the f32 masters, make the working copy and
-        reset the optimizer."""
+        """Install ``model`` as the f32 masters (rank 0's in a
+        data-parallel run), make the working copy and reset the
+        optimizer."""
         self.model = model.to(device=self.device, dtype=torch.float32)
+        if self.world:
+            self.world.broadcast_(list(self.model.state_dict().values()))
         dtype = compute_dtype(self.cfg.model)
         self.compute = self.model
         if dtype != torch.float32:
@@ -177,6 +218,15 @@ class Trainer:
         masters = [m for _, m, _ in self._trainable]
         grads = [torch.zeros_like(m) if c.grad is None else c.grad.float()
                  for _, m, c in self._trainable]
+        if self.world:
+            # the ranks' gradients summed in f32, before weight decay and
+            # clipping, which act on the global gradient once
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            mark(self.marks, "gradient f32 pack")
+            self.world.all_reduce_sum(flat)
+            grads = [part.view_as(m) for part, m in zip(
+                flat.split([m.numel() for m in masters]), masters)]
+            mark(self.marks, "gradient all-reduce")
         if sc.weight_decay > 0:
             grads = torch._foreach_add(grads,
                                        torch._foreach_mul(masters,
@@ -206,19 +256,27 @@ class Trainer:
         ``forward_train``, the weighted loss sum, backward, the optimizer.
         ``sampler_draws`` (``models.rcnn.sampler_draws``) replace the
         samplers' draws from ``generator``.  → the losses and
-        ``total_loss`` (device scalars); the working copy's ``.grad`` keep
-        this step's gradients until the next step."""
+        ``total_loss`` (device scalars; in a data-parallel run this rank's
+        shares, which ``global_metrics`` sums); the working copy's
+        ``.grad`` keep this rank's gradients until the next step."""
         cfg = self.cfg
         mark(self.marks, "start")
         masks = unpack_bitmasks(batch["masks_packed"], cfg.input.train_size[1])
+        # draws for the global batch, in a one-process run's order; this
+        # rank keeps its rows
+        b, r = batch["image"].shape[0], self.rank
+        draws = augment_draws(b * self.ranks, cfg.input, generator,
+                              self.device)
         aug = augment_batch({"image": batch["image"].float(),
                              "boxes": batch["boxes"], "masks": masks},
-                            cfg.input, generator)
+                            cfg.input, draws={k: v[r * b:(r + 1) * b]
+                                              for k, v in draws.items()})
         for _, _, c in self._trainable:
             c.grad = None
         losses = self.compute.forward_train(
             aug["image"], aug["boxes"], batch["classes"], aug["masks"],
-            batch["valid"], generator=generator, draws=sampler_draws)
+            batch["valid"], generator=generator, draws=sampler_draws,
+            world=self.world)
         total = sum(LOSS_WEIGHTS.get(k, 1.0) * v for k, v in losses.items())
         mark(self.marks, "forward")
         total.backward()
@@ -230,6 +288,20 @@ class Trainer:
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         return metrics
+
+    def global_metrics(self, metrics: Dict[str, torch.Tensor]
+                       ) -> Dict[str, float]:
+        """A step's metrics as host floats: in a data-parallel run the sum
+        of the ranks' shares (one all-reduce), i.e. the global batch's."""
+        if self.world:
+            vec = self.world.all_reduce_sum(
+                torch.stack([metrics[k].float() for k in metrics]))
+            metrics = dict(zip(metrics, vec))
+        return {k: float(v) for k, v in metrics.items()}
+
+    def _barrier(self) -> None:
+        if self.world:
+            self.world.barrier()
 
     # -------- the loop --------
 
@@ -253,20 +325,22 @@ class Trainer:
         ``solver.max_iter``).  ``batch_iter`` yields host numpy batches, or,
         with ``device_dataset`` (``TrainLoader.device_dataset``), [B] index
         vectors (``TrainLoader.index_batches``) whose batch is gathered on
-        the device.  → the final step."""
+        the device.  In a data-parallel run every rank calls ``fit`` with
+        its own batches; rank 0 logs and writes.  → the final step."""
         cfg = self.cfg
         indexed = device_dataset is not None
         max_iter = max_iter or cfg.solver.max_iter
         start = self.step
         metrics_path = os.path.join(cfg.output_dir, "metrics.json")
         t0 = time.time()
-        tb = SummaryWriter(cfg.output_dir)
+        tb = SummaryWriter(cfg.output_dir) if self.is_writer else None
         try:
             # one batch ahead: its upload overlaps the current step; a run
             # already complete consumes nothing
             pending = (self._put(next(batch_iter), indexed)
                        if start < max_iter else None)
-            with open(metrics_path, "a") as mf:
+            with (open(metrics_path, "a") if self.is_writer
+                  else contextlib.nullcontext()) as mf:
                 for i in range(start, max_iter):
                     batch = pending
                     if i + 1 < max_iter:
@@ -276,8 +350,12 @@ class Trainer:
                                  for k, v in device_dataset.items()}
                     metrics = self.train_step(
                         batch, step_generator(cfg.solver.seed, i, self.device))
-                    if (i + 1) % cfg.solver.log_period == 0 or i + 1 == max_iter:
-                        m = {k: float(v) for k, v in metrics.items()}
+                    logged = ((i + 1) % cfg.solver.log_period == 0
+                              or i + 1 == max_iter)
+                    if logged:
+                        # every rank joins the sum; rank 0 writes it
+                        m = self.global_metrics(metrics)
+                    if logged and self.is_writer:
                         m["iteration"] = i + 1
                         m["time_per_iter"] = (time.time() - t0) / max(
                             i + 1 - start, 1)
@@ -293,7 +371,8 @@ class Trainer:
                             % cfg.solver.checkpoint_period == 0):
                         self.save_checkpoint()
         finally:
-            tb.close()
+            if tb is not None:
+                tb.close()
         self.save_checkpoint(final=True)
         return self.step
 
@@ -301,19 +380,24 @@ class Trainer:
 
     def save_checkpoint(self, final: bool = False) -> str:
         """``ckpt_<step>.pt`` (masters, traces, step); with ``final`` also
-        ``model_final.npz`` and, beside it, ``config.json``."""
-        state = {"model": self.model.state_dict(),
-                 "trace": {n: t for (n, _, _), t in zip(self._trainable,
-                                                        self.traces)},
-                 "step": self.step}
-        path = ckpt.save_checkpoint(self.cfg.output_dir, state, self.step)
-        if final:
-            ckpt.save_params_npz(
-                os.path.join(self.cfg.output_dir, "model_final.npz"),
-                params_to_flax(self.model))
-            with open(os.path.join(self.cfg.output_dir, "config.json"),
-                      "w") as f:
-                f.write(self.cfg.dumps())
+        ``model_final.npz`` and, beside it, ``config.json``.  Rank 0
+        writes; the other ranks wait for it.  → the checkpoint's path (None
+        on the other ranks)."""
+        path = None
+        if self.is_writer:
+            state = {"model": self.model.state_dict(),
+                     "trace": {n: t for (n, _, _), t in zip(self._trainable,
+                                                            self.traces)},
+                     "step": self.step}
+            path = ckpt.save_checkpoint(self.cfg.output_dir, state, self.step)
+            if final:
+                ckpt.save_params_npz(
+                    os.path.join(self.cfg.output_dir, "model_final.npz"),
+                    params_to_flax(self.model))
+                with open(os.path.join(self.cfg.output_dir, "config.json"),
+                          "w") as f:
+                    f.write(self.cfg.dumps())
+        self._barrier()
         return path
 
     def resume_or_load(self, resume: bool = False) -> None:
@@ -331,6 +415,15 @@ class Trainer:
                 self.traces = [state["trace"][n].to(self.device)
                                for n, _, _ in self._trainable]
                 self.step = int(state["step"])
+                if self.world:
+                    # rank 0's weights, traces and step
+                    step = torch.tensor([self.step], dtype=torch.float64,
+                                        device=self.device)
+                    self.world.broadcast_(
+                        list(self.model.state_dict().values())
+                        + self.traces + [step])
+                    self.step = int(step.item())
+                    self._refresh(everything=True)
                 return
         if self.cfg.weights:
             self.load_params(ckpt.load_weights(self.cfg.weights, self.model,

@@ -238,8 +238,9 @@ def device_groups(n_parallel: int,
     """``n_parallel`` groups of devices, clipped to the device count as the
     JAX package clips them: one CUDA device per group (``device`` defaults
     to ``cuda`` and raises without a card); ``device="cpu"`` gives one
-    group.  A group of several devices needs data parallelism across them,
-    which the port does not have yet: asking for one raises."""
+    group.  A group of several devices raises: a trial over several cards
+    needs a process group of its own (ROADMAP.md §A, "HPO trials over
+    groups of several cards")."""
     from uwcv_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -250,8 +251,9 @@ def device_groups(n_parallel: int,
     if per > 1:
         raise NotImplementedError(
             f"{n_parallel} groups of {len(devs)} devices would put {per} "
-            f"devices in a group; multi-device trials need data parallelism, "
-            f"which uwcv_tpu_torch does not have yet")
+            f"devices in a group; a trial over several cards needs data "
+            f"parallelism in a process group per trial (ROADMAP.md §A: "
+            f"HPO trials over groups of several cards)")
     return [[devs[i]] for i in range(n_parallel)]
 
 

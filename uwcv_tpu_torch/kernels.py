@@ -71,6 +71,7 @@ HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name → {"seconds": build time (0 when cached), "ptxas": compiler report}
 build_info: Dict[str, dict] = {}
@@ -165,6 +166,13 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: the threads of a mesh predictor
+    launch concurrently, and ``+=`` on an attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(rc: int, what: str) -> None:

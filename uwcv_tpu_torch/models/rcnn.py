@@ -9,7 +9,9 @@ NMS (NMS kernel), the mask pooler (RoIAlign kernel) and the mask head.
 with in-graph label assignment and balanced sampling; the poolers go
 through the RoIAlign kernel and its backward, the RPN's proposal selection
 through the NMS kernel.  Its random draws come from a ``torch.Generator``
-through ``sampler_draws``, or from the caller.
+through ``sampler_draws``, or from the caller.  In a data-parallel run
+(``world``, ``parallel/mesh.py::DataAxis``) each rank computes its share of
+the global batch's loss; the shares add up to it.
 """
 
 from __future__ import annotations
@@ -181,8 +183,8 @@ class MaskRCNN(nn.Module):
                       gt_classes: torch.Tensor, gt_masks: torch.Tensor,
                       gt_valid: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> Dict[str, torch.Tensor]:
+                      draws: Optional[Dict[str, torch.Tensor]] = None,
+                      world=None) -> Dict[str, torch.Tensor]:
         """Training forward → loss dict (port of rcnn.py:161-325).
 
         images [B,H,W,3] RGB float; gt_boxes [B,N,4]; gt_classes [B,N];
@@ -190,7 +192,15 @@ class MaskRCNN(nn.Module):
         rpn_cls (BCE), rpn_loc (L1), cls (softmax CE incl. background),
         box_reg (L1, fg only), mask (BCE on the matched class's channel).
         ``draws`` (``sampler_draws``) are the samplers' uniforms; without
-        them they are drawn from ``generator``."""
+        them they are drawn from ``generator``.
+
+        ``world`` (``parallel/mesh.py::DataAxis``): this batch is rank
+        ``world.rank``'s rows of a global batch of ``world.size`` such
+        batches.  The generator then draws for the global batch and the
+        rank takes its rows, and every loss is the rank's numerator over
+        the global denominator (the batch, its rois, the summed roi
+        weights, all-reduced and detached): the ranks' losses add up to
+        the global batch's, and so do their gradients."""
         c = self.cfg
         b, h, w, _ = images.shape
         dev = images.device
@@ -205,9 +215,11 @@ class MaskRCNN(nn.Module):
                                1)
         cand_boxes = torch.cat([proposals.boxes, gt_boxes.float()], 1)
         cand_valid = torch.cat([proposals.valid, gt_valid], 1)
+        ranks, rank = (world.size, world.rank) if world else (1, 0)
         if draws is None:
-            draws = sampler_draws(c, b, anchors_cat.shape[0],
+            draws = sampler_draws(c, b * ranks, anchors_cat.shape[0],
                                   cand_boxes.shape[1], generator, dev)
+            draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
         classes = gt_classes.long()
         wtab = lambda ws: torch.tensor(ws, dtype=torch.float32, device=dev)
         class_of = lambda idx: _take(classes, idx).clamp(0, c.num_classes - 1)
@@ -248,6 +260,17 @@ class MaskRCNN(nn.Module):
         n = b * r
         tgt = cls_target.reshape(n)
         fg = s_pos.reshape(n).float()
+        # per-roi weight by target class, background 1.0 (torch
+        # CrossEntropyLoss(weight=w) semantics)
+        roi_w = (wtab(tuple(c.class_loss_weights) + (1.0,))[tgt]
+                 if c.class_loss_weights
+                 else torch.ones((n,), dtype=torch.float32, device=dev))
+        # the batch-wide denominators: summed roi weights (cls) and summed
+        # fg roi weights (mask), over every rank's batch
+        dens = torch.stack([roi_w.sum(), (fg * roi_w).sum()]).detach()
+        if world:
+            world.all_reduce_sum(dens)
+        b_all, n_all = b * ranks, n * ranks
 
         # --- box head ---
         canvas, shapes = level_canvas(
@@ -259,19 +282,17 @@ class MaskRCNN(nn.Module):
         pooled = pool(c.pooler_resolution_box)
         logits, box_deltas = self.box_head(pooled.reshape((n,) + pooled.shape[2:]))
         if c.class_loss_weights:
-            # per-roi weight by target class, background 1.0: torch
-            # CrossEntropyLoss(weight=w) semantics, sum(w·ce)/sum(w)
-            roi_w = wtab(tuple(c.class_loss_weights) + (1.0,))[tgt]
+            # sum(w·ce) / sum(w)
             cls_loss = (softmax_ce(logits, tgt) * roi_w).sum() \
-                / roi_w.sum().clamp_min(1.0)
+                / dens[0].clamp_min(1.0)
         else:
-            roi_w = torch.ones((n,), dtype=torch.float32, device=dev)
-            cls_loss = softmax_ce(logits, tgt).mean()
+            cls_loss = softmax_ce(logits, tgt).sum() / n_all
         fg_cls = tgt.clamp(0, c.num_classes - 1)
         per_roi_deltas = box_deltas[torch.arange(n, device=dev), fg_cls]
         box_loss = ((per_roi_deltas - reg_targets.reshape(n, 4)).abs().sum(-1)
-                    * fg * roi_w).sum() / max(n, 1)
-        losses = {"rpn_cls": rpn_cls.mean(), "rpn_loc": rpn_loc.mean(),
+                    * fg * roi_w).sum() / max(n_all, 1)
+        losses = {"rpn_cls": rpn_cls.sum() / b_all,
+                  "rpn_loc": rpn_loc.sum() / b_all,
                   "cls": cls_loss, "box_reg": box_loss}
 
         # --- mask head ---
@@ -291,5 +312,5 @@ class MaskRCNN(nn.Module):
             # Detectron2's mask_rcnn_loss: the mean over all fg rois of the
             # batch jointly, weighted per roi by target class
             losses["mask"] = (mask_ce.mean(dim=(1, 2)) * fg * roi_w).sum() \
-                / (fg * roi_w).sum().clamp_min(1.0)
+                / dens[1].clamp_min(1.0)
         return losses

@@ -87,7 +87,7 @@ def _nms_greedy_op(boxes_sorted, valid, iou_threshold):
                                  float(iou_threshold),
                                  kernels.stream_ptr(boxes_sorted.device))
     kernels.check(rc, "nms_greedy")
-    nms_greedy.launches += 1
+    kernels.count_launch(nms_greedy)
     return keep
 
 

@@ -260,7 +260,7 @@ def _roi_align_windows_op(canvas, slab, y0, x0, wy, wx):
                 weights.data_ptr(), out.data_ptr(), r, p, h, w, c, win,
                 kernels.stream_ptr(canvas.device))
     kernels.check(rc, "roi_align_windows")
-    roi_align_windows.launches += 1
+    kernels.count_launch(roi_align_windows)
     return out
 
 
@@ -344,7 +344,7 @@ def roi_align_windows_backward(g, slab, y0, x0, wy, wx,
                 weights.data_ptr(), out.data_ptr(), r, p, s, h, w, c, win,
                 kernels.stream_ptr(g.device))
     kernels.check(rc, "roi_align_windows_backward")
-    roi_align_windows_backward.launches += 1
+    kernels.count_launch(roi_align_windows_backward)
     return out
 
 
