@@ -111,7 +111,21 @@ Phases (any failure raises and exits non-zero):
    single-device predictor on each device's slice, then
    ``run_batch_inference`` over 16 16-bit TIFFs at batch 5, each chunk
    padded to the mesh; B1 and B2 2 a batch on each device;
-16. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+16. hpo groups: ``run_reference_hpo`` over groups of two devices, each
+   trial in two spawned ranks of a process group of its own, scored on
+   the driver: one trial at the default config over ``[cuda:0, cuda:0]``
+   (two gloo ranks), 10 steps, scored on the hpo phase's 4 test images;
+   the CPU test's equality on the card (R26/FPN-64 in f32, TF32 off, 5
+   steps without a Test split: two gloo ranks' global losses within 1e-3
+   relative of one process's at the same global batch); with two or more
+   cards, ``cards // 2`` groups of two NCCL ranks, two trials each, whose
+   training intervals must overlap.  Every trial COMPLETE (segm AP in [0,
+   1] where scored), each group's masters bit-identical across its ranks;
+   launches summed over the ranks' reports and the driver's count, zeroed
+   just before: B1 2, B1-bwd 2, B2 1 a step a rank, B1 2 and B2 2 an eval
+   batch on the driver; seconds per trial (spawn, set-up, training, eval),
+   ms/step and peak memory per rank and on the driver's cards;
+17. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
    ``roi_align_windows_backward``, ``nms_greedy``) of the
    ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
@@ -130,6 +144,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import copy
 import csv
 import hashlib
 import json
@@ -928,14 +943,9 @@ def check_eval(dev) -> dict:
 
 
 def _launch_counts() -> dict:
-    from uwcv_tpu_torch.ops.nms import nms_greedy
-    from uwcv_tpu_torch.ops.roi_align import (
-        roi_align_windows,
-        roi_align_windows_backward,
-    )
+    from uwcv_tpu_torch.kernels import launch_counts
 
-    return {f.__name__: f.launches for f in (
-        roi_align_windows, roi_align_windows_backward, nms_greedy)}
+    return launch_counts()
 
 
 def _zero_launch_counts() -> None:
@@ -1610,8 +1620,237 @@ def run_hpo(dev) -> dict:
             "best_params": res["best_params"], "wall_s": wall,
             "synth_s": synth_s, "eval_predictors": res["eval_predictors"],
             "peak_gib": peak / 2**30, "launches": launches,
-            "gallery": len(gallery)}
+            "gallery": len(gallery), "paths": paths}
 
+
+# ---------------------------------------------------------------- hpo groups
+
+GROUP_ITERS, GROUP_EQ_ITERS = 10, 5
+
+
+def _gib(peak: dict) -> dict:
+    return {k: round(v / 2**30, 2) for k, v in peak.items()}
+
+
+def _steady_ms(attrs: dict) -> float:
+    """A trial's ms/step after its first step (host clock)."""
+    return ((attrs["train_s"] - attrs["first_step_s"])
+            / max(attrs["steps"] - 1, 1) * 1e3)
+
+
+def _sweep_over_groups(cfg, paths: dict, with_test: bool, **kw) -> tuple:
+    """``run_reference_hpo`` over the hpo phase's synthetic split, with its
+    Test split (segm AP) or without (the final loss).  Launch counts and
+    the peak memory of the driver's cards are zeroed just before.  → the
+    result, the driver's launches and its peak bytes per card."""
+    from uwcv_tpu_torch.data.catalog import (
+        DatasetCatalog,
+        register_superannotate,
+    )
+    from uwcv_tpu_torch.hpo.study import run_reference_hpo
+
+    # a hung rank fails its collective within two minutes
+    cfg.parallel.init_timeout_s = 120
+    names = (cfg.data.train_dataset, cfg.data.test_dataset)
+    for name in names:
+        DatasetCatalog.remove(name)
+    torch.cuda.init()              # the allocator's stats need it
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    _zero_launch_counts()
+    try:
+        if with_test:
+            res = run_reference_hpo(cfg, data_dir=paths["Train"], seed=0, **kw)
+        else:
+            cfg.data.dataset_root = os.path.join(WORK, "nowhere")
+            register_superannotate(names[0], paths["Train"],
+                                   classes_csv=paths["classes_csv"])
+            res = run_reference_hpo(cfg, seed=0, **kw)
+    finally:
+        for name in names:
+            DatasetCatalog.remove(name)
+    for i in cards:
+        torch.cuda.synchronize(i)
+    return res, _launch_counts(), {
+        f"cuda:{i}": torch.cuda.max_memory_allocated(i) for i in cards}
+
+
+def _check_group_sweep(name: str, res: dict, driver: dict, steps: int,
+                       eval_batches: int, ranks: int, use_map: bool) -> dict:
+    """Every trial COMPLETE (segm AP in [0, 1] when scored), ``ranks``
+    ranks with bit-identical masters, each rank's launches B1 2, B1-bwd 2
+    and B2 1 a step, the driver's B1 2 and B2 2 an eval batch.  Prints
+    each trial's seconds.  → the launches summed over ranks and driver."""
+    total = dict(driver)
+    per_rank = {"roi_align_windows": 2 * steps,
+                "roi_align_windows_backward": 2 * steps, "nms_greedy": steps}
+    for t in res["trials"]:
+        a = t["user_attrs"]
+        if t["state"] != "COMPLETE":
+            raise RuntimeError(f"{name}: trial {t['number']} {t['state']}: "
+                               f"{a.get('error')}")
+        if use_map and not (np.isfinite(t["value"]) and
+                            0.0 <= t["value"] <= 1.0):
+            raise RuntimeError(f"{name}: trial {t['number']} segm AP "
+                               f"{t['value']}")
+        reps = a["rank_reports"]
+        if a["ranks"] != ranks or len(reps) != ranks or \
+                len({r["masters_sha256"] for r in reps}) != 1:
+            raise RuntimeError(f"{name}: trial {t['number']}: {a['ranks']} "
+                               f"ranks, masters digests "
+                               f"{[r['masters_sha256'] for r in reps]}")
+        for r in reps:
+            if r["launches"] != per_rank:
+                raise RuntimeError(f"{name}: rank on {r['device']} launched "
+                                   f"{r['launches']}, expected {per_rank}")
+            for k, v in r["launches"].items():
+                total[k] += v
+        log(f"  {name} trial {t['number']} (group {a['group']}: "
+            f"{[r['device'] for r in reps]}): "
+            + (f"segm AP {t['value']}" if use_map else
+               f"final loss {t['value']:.6f}")
+            + f"; spawn {a['spawn_s']:.2f} s, set-up {a['setup_s']:.2f} s, "
+            f"{a['steps']} steps {a['train_s']:.2f} s "
+            f"({a['train_s'] / a['steps'] * 1e3:.1f} ms/step, rank 0's host "
+            f"clock; the first step {a['first_step_s']:.2f} s, then "
+            f"{_steady_ms(a):.1f} ms/step)"
+            + (f", eval {a['eval_s']:.2f} s" if use_map else "")
+            + f"; peak per rank "
+            f"{[round(r['peak_bytes'] / 2**30, 2) for r in reps]} GiB")
+    want = {"roi_align_windows": 2 * eval_batches,
+            "roi_align_windows_backward": 0, "nms_greedy": 2 * eval_batches}
+    if driver != want:
+        raise RuntimeError(f"{name}: the driver launched {driver}, expected "
+                           f"{want}")
+    return total
+
+
+def run_hpo_groups(paths: dict) -> dict:
+    """[hpo groups] on one card: trials over a group of two devices, each
+    trial in two spawned ranks of a process group of its own, scored on
+    the driver.
+
+    - one trial at the default config (R50-FPN-256, bf16 compute, f32
+      masters, 800×800, batch 2) over ``[cuda:0, cuda:0]`` (two gloo
+      ranks), ``GROUP_ITERS`` steps, scored on the 4 test images;
+    - the equality of the CPU test on the card: R26/FPN-64 (the gate's
+      width) in f32, TF32 off, ``GROUP_EQ_ITERS`` steps without the Test
+      split over ``[cuda:0, cuda:0]`` and in one process at the same global
+      batch of 2; each step's global loss within 1e-3 relative.
+
+    Every trial COMPLETE, the masters bit-identical across its ranks;
+    launches summed over the ranks' reports and the driver's count, each
+    zeroed just before: B1 2, B1-bwd 2, B2 1 a step a rank, B1 2 and B2 2
+    an eval batch on the driver."""
+    from uwcv_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.output_dir = os.path.join(WORK, "hpo_groups_gloo")
+    cfg.data.classes_csv = paths["classes_csv"]
+    cfg.data.train_dataset = "chip_smoke_groups_train"
+    cfg.data.test_dataset = "chip_smoke_groups_test"
+    t0 = time.perf_counter()
+    res, driver, peak = _sweep_over_groups(
+        cfg, paths, True, n_trials=1, max_iter=GROUP_ITERS, n_parallel=1,
+        devices=["cuda:0", "cuda:0"])
+    wall = time.perf_counter() - t0
+    launches = _check_group_sweep("hpo groups gloo", res, driver,
+                                  GROUP_ITERS, 1, 2, True)
+    log(f"  hpo groups gloo: 1 trial × {GROUP_ITERS} steps over [cuda:0, "
+        f"cuda:0] (two ranks share the card: a correctness run, not a rate) "
+        f"in {wall:.1f} s; driver peak per card {_gib(peak)} GiB; "
+        f"launches {driver} on the driver")
+    out = {"gloo": {"trials": res["trials"], "wall_s": wall,
+                    "driver_peak_bytes": peak}}
+
+    # the CPU test's equality on the card
+    eq = Config()
+    m = eq.model
+    m.depth, m.fpn_channels, m.box_fc_dim, m.dtype = 26, 64, 256, "float32"
+    m.anchor_aspect_ratios = (0.1, 0.5, 1.0, 2.0, 10.0)
+    eq.data.classes_csv = paths["classes_csv"]
+    eq.data.train_dataset = "chip_smoke_groups_eq"
+    eq.data.test_dataset = "chip_smoke_groups_eq_test"
+    eq.solver.ims_per_batch = 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for key, devices in (("two gloo ranks", ["cuda:0", "cuda:0"]),
+                             ("one process", ["cuda:0"])):
+            c = copy.deepcopy(eq)
+            c.output_dir = os.path.join(WORK, "hpo_groups_eq",
+                                        key.replace(" ", "_"))
+            runs[key] = _sweep_over_groups(c, paths, False, n_trials=1,
+                                           max_iter=GROUP_EQ_ITERS,
+                                           n_parallel=1, devices=devices)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    two, one = runs["two gloo ranks"], runs["one process"]
+    for k, v in _check_group_sweep("hpo groups equality", two[0], two[1],
+                                   GROUP_EQ_ITERS, 0, 2, False).items():
+        launches[k] += v
+    t1 = one[0]["trials"][0]
+    want_one = {"roi_align_windows": 2 * GROUP_EQ_ITERS,
+                "roi_align_windows_backward": 2 * GROUP_EQ_ITERS,
+                "nms_greedy": GROUP_EQ_ITERS}
+    if t1["state"] != "COMPLETE" or one[1] != want_one:
+        raise RuntimeError(f"hpo groups equality: the one-process trial "
+                           f"{t1['state']}, launches {one[1]}")
+    for k, v in one[1].items():
+        launches[k] += v
+    got = np.asarray(two[0]["trials"][0]["user_attrs"]["losses"])
+    want = np.asarray(t1["user_attrs"]["losses"])
+    rel = np.abs(got - want) / np.abs(want)
+    if got.shape != (GROUP_EQ_ITERS,) or not (rel <= 1e-3).all():
+        raise RuntimeError(f"hpo groups equality: two ranks' losses {got} "
+                           f"vs one process's {want}")
+    log(f"  hpo groups equality, R26/FPN-64 f32 (TF32 off), global batch 2, "
+        f"{GROUP_EQ_ITERS} steps: two gloo ranks' global losses within "
+        f"{rel.max():.2e} rel of one process's ({got.tolist()} vs "
+        f"{want.tolist()})")
+    out["equality"] = {"worst_loss_rel": float(rel.max()),
+                       "losses_two_ranks": got.tolist(),
+                       "losses_one_process": want.tolist()}
+    out["launches"] = launches
+    return out
+
+
+def run_hpo_groups_over_cards(paths: dict, n_cards: int) -> dict:
+    """[hpo groups] over cards: ``cards // 2`` groups of two NCCL ranks,
+    two trials each, at the default config, ``GROUP_ITERS`` steps, scored
+    on the 4 test images.  The checks of ``run_hpo_groups``, and with two
+    groups or more their training intervals must overlap."""
+    from uwcv_tpu_torch.config import Config
+
+    g = n_cards // 2
+    cfg = Config()
+    cfg.output_dir = os.path.join(WORK, "hpo_groups_nccl")
+    cfg.data.classes_csv = paths["classes_csv"]
+    cfg.data.train_dataset = "chip_smoke_groups_nccl"
+    cfg.data.test_dataset = "chip_smoke_groups_nccl_test"
+    t0 = time.perf_counter()
+    res, driver, peak = _sweep_over_groups(
+        cfg, paths, True, n_trials=2 * g, max_iter=GROUP_ITERS, n_parallel=g,
+        devices=[f"cuda:{i}" for i in range(2 * g)])
+    wall = time.perf_counter() - t0
+    launches = _check_group_sweep("hpo groups nccl", res, driver,
+                                  GROUP_ITERS, 2 * g, 2, True)
+    spans = [(t["user_attrs"]["group"], *t["user_attrs"]["train_span"])
+             for t in res["trials"]]
+    overlap = any(ga != gb and max(a0, b0) < min(a1, b1)
+                  for ga, a0, a1 in spans for gb, b0, b1 in spans)
+    if g > 1 and not overlap:
+        raise RuntimeError(f"hpo groups nccl: no two groups trained at "
+                           f"once: {spans}")
+    log(f"  hpo groups nccl: {2 * g} trials × {GROUP_ITERS} steps over {g} "
+        f"group(s) of two cards in {wall:.1f} s; training intervals "
+        + ("overlap across groups" if g > 1 else "of one group")
+        + f"; driver peak per card {_gib(peak)} GiB")
+    return {"trials": res["trials"], "wall_s": wall,
+            "driver_peak_bytes": peak, "overlap": overlap,
+            "launches": launches}
 
 
 # ---------------------------------------------------------------- export
@@ -1870,13 +2109,6 @@ DP_CARDS = (2, 2, 20)        # one NCCL rank per card
 MESH_BATCH, MESH_FOLDER_BATCH = 8, 5
 
 
-def _masters_digest(model) -> str:
-    h = hashlib.sha256()
-    for t in model.state_dict().values():
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()
-
-
 def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
               norm_rtol: float = 1e-3) -> dict:
     """One rank of the data-parallel train golden: the gate checkpoint in
@@ -1889,6 +2121,7 @@ def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
     relative errors, launches and a digest of the masters."""
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
+    from uwcv_tpu_torch.parallel.mesh import masters_digest
     from uwcv_tpu_torch.weights import flax_leaf_names, load_npz
 
     cuda = dev.type == "cuda"
@@ -1943,7 +2176,7 @@ def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
             "worst_grad_norm_rel": worst_norm,
             "leaves": int(len(g["grad_norm_keys"])),
             "launches": _launch_counts(),
-            "masters_sha256": _masters_digest(trainer.model)}
+            "masters_sha256": masters_digest(trainer.model)}
 
 
 def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
@@ -1961,6 +2194,7 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
     from uwcv_tpu_torch.data.loader import TrainLoader
     from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
     from uwcv_tpu_torch.engine.trainer import Trainer
+    from uwcv_tpu_torch.parallel.mesh import masters_digest
 
     cfg = Config()
     cfg.output_dir = os.path.join(out_dir, "train")
@@ -2012,7 +2246,7 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
         prev = ev
     rec = {"launches": launches, "steps": n, "timed": timed,
            "global_batch": cfg.solver.ims_per_batch, "wall_s": wall,
-           "split_ms": split, "masters_sha256": _masters_digest(trainer.model),
+           "split_ms": split, "masters_sha256": masters_digest(trainer.model),
            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                         if cuda else 0.0)}
     if trainer.is_writer:
@@ -2063,26 +2297,14 @@ def run_ranks(world: int, backend: str, device: str, phases: tuple,
     rank that fails or hangs fails the call, and every rank is stopped.
     → each rank's record, in rank order; the masters must be
     bit-identical across ranks after every phase."""
-    import torch.multiprocessing as mp
+    from uwcv_tpu_torch.parallel.mesh import spawn_ranks
 
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     init = "file://" + os.path.join(out_dir, "rendezvous")
-    ctx = mp.start_processes(
-        dp_rank, args=(world, init, backend, device, tuple(phases), out_dir,
-                       tuple(train_shape)),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{world} {backend} ranks on {device} "
-                                   f"still running after {timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(10)
+    spawn_ranks(dp_rank, world, args=(world, init, backend, device,
+                                      tuple(phases), out_dir,
+                                      tuple(train_shape)), timeout=timeout)
     recs = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -2378,6 +2600,18 @@ def main(argv=None) -> int:
         f"{folder['img_per_s']:.3f} (one device, batch 8); the mesh's batch "
         f"of 8 {8e3 / mesh['batch_ms']:.2f} img/s (one batch, host clock)")
 
+    log("[hpo groups] trials over groups of devices, ranks spawned per trial")
+    t0 = time.perf_counter()
+    groups = run_hpo_groups(hpo["paths"])
+    if n_cards < 2:
+        log("  [hpo groups] one card: groups of two NCCL ranks need two "
+            "cards and are skipped")
+    else:
+        groups["nccl"] = run_hpo_groups_over_cards(hpo["paths"], n_cards)
+        for k, v in groups["nccl"]["launches"].items():
+            groups["launches"][k] += v
+    log(f"  [hpo groups]: {time.perf_counter() - t0:.1f} s")
+
     against = {}
     if args.against:
         log(f"[against] kernel wrappers of {args.against} against these")
@@ -2389,7 +2623,8 @@ def main(argv=None) -> int:
               "hpo": hpo["launches"], "export": export["launches"],
               "dp golden": _dp_launches(dp, "golden"),
               "dp train": _dp_launches(dp, "train"),
-              "mesh predict": mesh["launches"]}
+              "mesh predict": mesh["launches"],
+              "hpo groups": groups["launches"]}
 
     def counts(name):
         by_phase = {k: v.get(name, 0) for k, v in phases.items()}
@@ -2434,7 +2669,7 @@ def main(argv=None) -> int:
                     "eval": gate_eval, "train_golden": train_golden,
                     "train": train, "pth_import": pth, "hpo": hpo,
                     "export": export, "data_parallel": dp,
-                    "mesh_predict": mesh},
+                    "mesh_predict": mesh, "hpo_groups": groups},
                    default=str))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -483,6 +483,50 @@ def test_hpo_trials_run_one_a_card(second_card, tmp_path):
     assert res["eval_predictors"] == n
 
 
+def test_hpo_trials_over_groups_of_two_cards(second_card, tmp_path):
+    """``run_reference_hpo`` over groups of two cards (``cards // 2``
+    groups), one trial a group, each trial in two spawned NCCL ranks:
+    every trial completes with its group's masters bit-identical, and the
+    launches follow the formula: per rank B1 2, B1-bwd 2 and B2 1 a step;
+    on the driver B1 2 and B2 2 an eval batch."""
+    from uwcv_tpu_torch.data.catalog import DatasetCatalog
+    from uwcv_tpu_torch.data.synthetic import generate_dataset
+    from uwcv_tpu_torch.hpo.study import run_reference_hpo
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+
+    g = torch.cuda.device_count() // 2
+    paths = generate_dataset(str(tmp_path / "data"), num_train=2,
+                             num_test=2, num_inference=0,
+                             image_size=(128, 128), seed=1)
+    cfg = _small_cfg()
+    cfg.output_dir = str(tmp_path / "out")
+    cfg.data.classes_csv = paths["classes_csv"]
+    cfg.data.train_dataset = "_cuda_hpo_groups_train"
+    cfg.data.test_dataset = "_cuda_hpo_groups_test"
+    fns = (roi_align_windows, roi_align_windows_backward, nms_greedy)
+    before = [f.launches for f in fns]
+    try:
+        res = run_reference_hpo(cfg, n_trials=g, max_iter=3, n_parallel=g,
+                                data_dir=paths["Train"],
+                                devices=[f"cuda:{i}" for i in range(2 * g)])
+    finally:
+        DatasetCatalog.remove("_cuda_hpo_groups_train")
+        DatasetCatalog.remove("_cuda_hpo_groups_test")
+    assert [t["state"] for t in res["trials"]] == ["COMPLETE"] * g, res
+    assert res["objective"] == "segm_mAP"
+    assert [f.launches - b for f, b in zip(fns, before)] == [2 * g, 0, 2 * g]
+    devices = set()
+    for t in res["trials"]:
+        reps = t["user_attrs"]["rank_reports"]
+        assert t["user_attrs"]["ranks"] == len(reps) == 2
+        assert len({r["masters_sha256"] for r in reps}) == 1
+        assert all(r["launches"] == {"roi_align_windows": 6,
+                                     "roi_align_windows_backward": 6,
+                                     "nms_greedy": 3} for r in reps)
+        devices |= {r["device"] for r in reps}
+    assert devices == {f"cuda:{i}" for i in range(2 * g)}
+
+
 def test_exported_program_on_card_matches_live_and_launches_kernels(
         dev, tmp_path):
     """Export → save → load → run on the card at small width (bf16): the

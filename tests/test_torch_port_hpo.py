@@ -110,8 +110,9 @@ def test_sweep_suggestions_equal_jax(space):
 
 def test_device_groups(monkeypatch):
     """One group of one CUDA device each, clipped to the device count;
-    ``cpu`` is one group; a group of several devices raises; ``cuda``
-    without a card raises."""
+    ``cpu`` is one group; fewer groups than cards share the cards out as
+    JAX does (4 cards: 1 → one group of 4, 2 → two of 2); ``cuda`` without
+    a card raises."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         study.device_groups(1)
@@ -121,9 +122,9 @@ def test_device_groups(monkeypatch):
     for n in (4, 8):
         assert study.device_groups(n, "cuda") == [
             [torch.device("cuda", i)] for i in range(4)]
-    for n in (1, 2):
-        with pytest.raises(NotImplementedError, match="data parallelism"):
-            study.device_groups(n, "cuda")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert study.device_groups(1, "cuda") == [cards]
+    assert study.device_groups(2, "cuda") == [cards[:2], cards[2:]]
 
 
 def _tiny_cfg(tmp_path):

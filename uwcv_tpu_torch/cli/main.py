@@ -87,7 +87,7 @@ def cmd_train(args) -> int:
     world = _local_world(cfg, args.device)
     if world == 1:
         return _train(cfg, args)
-    import torch.multiprocessing as mp
+    from uwcv_tpu_torch.parallel.mesh import spawn_ranks
 
     if args.device != "cpu":
         # every rank would run nvcc: build once here
@@ -98,7 +98,7 @@ def cmd_train(args) -> int:
     par.multi_host, par.num_processes = True, world
     if not par.coordinator_address:
         par.coordinator_address = f"127.0.0.1:{_free_port()}"
-    mp.spawn(_train_worker, args=(cfg, args), nprocs=world)
+    spawn_ranks(_train_worker, world, args=(cfg, args))
     return 0
 
 

@@ -12,18 +12,26 @@ same reported values give the same suggestions:
 - sampler: random warm-up, then a TPE-style sampler (top-γ/bottom split,
   kernel-density ratio argmax over candidates);
 - trial parallelism: one trial per device group, dispatched from a thread
-  pool.  A group is one CUDA device; on one GPU the trials run in turn.
+  pool.  A trial over a group of one device trains in its pool thread; a
+  trial over a group of k > 1 devices trains data-parallel in k spawned
+  ranks of a process group of its own (``parallel/mesh.py``), and the
+  driver scores it on the group's first device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import json
 import math
+import os
+import pickle
+import shutil
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -233,34 +241,196 @@ def create_study(direction: str = "minimize", seed: int = 0) -> Study:
 # ---------------------------------------------------------------------------
 
 def device_groups(n_parallel: int,
-                  device: Optional[Union[str, torch.device]] = None
+                  device: Optional[Union[str, torch.device]] = None,
+                  devices: Optional[Sequence] = None
                   ) -> List[List[torch.device]]:
-    """``n_parallel`` groups of devices, clipped to the device count as the
-    JAX package clips them: one CUDA device per group (``device`` defaults
-    to ``cuda`` and raises without a card); ``device="cpu"`` gives one
-    group.  A group of several devices raises: a trial over several cards
-    needs a process group of its own (ROADMAP.md §A, "HPO trials over
-    groups of several cards")."""
+    """``n_parallel`` equal groups of devices, as the JAX package forms
+    them: ``n_parallel`` is clipped to the device count, each group holds
+    ``count // n_parallel`` devices and the leftover devices stay unused.
+    The devices are every CUDA device (``device`` defaults to ``cuda`` and
+    raises without a card), the one ``device="cpu"``, or an explicit
+    ``devices`` list taken as given, repeats included (``["cpu", "cpu"]``,
+    or ``["cuda:0", "cuda:0"]``: two ranks sharing one card)."""
     from uwcv_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(device)
-    devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-            if dev.type == "cuda" else [dev])
+    if devices is not None:
+        devs = [resolve_device(d) for d in devices]
+        # a bare "cuda" is the current card, so that repeats are seen
+        devs = [torch.device("cuda", torch.cuda.current_device())
+                if d.type == "cuda" and d.index is None else d for d in devs]
+    else:
+        dev = resolve_device(device)
+        devs = ([torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" else [dev])
     n_parallel = max(1, min(n_parallel, len(devs)))
     per = len(devs) // n_parallel
-    if per > 1:
-        raise NotImplementedError(
-            f"{n_parallel} groups of {len(devs)} devices would put {per} "
-            f"devices in a group; a trial over several cards needs data "
-            f"parallelism in a process group per trial (ROADMAP.md §A: "
-            f"HPO trials over groups of several cards)")
-    return [[devs[i]] for i in range(n_parallel)]
+    return [devs[i * per:(i + 1) * per] for i in range(n_parallel)]
+
+
+def _train_trial(tcfg, dicts, dev: torch.device, seed: int, step_seed: int,
+                 max_iter: int):
+    """A trial's training on ``dev``: a ``Trainer`` from a fresh init
+    (``seed``), the dataset staged on the device when it fits, and
+    ``max_iter`` steps whose draws come from ``step_generator(step_seed,
+    i)``.  In a process group each rank trains on its share of the global
+    batch.  → the trainer and {setup_s, train_s, first_step_s (the first
+    step alone, to its end on the device), steps, losses (the last 5
+    global total losses), train_span (wall-clock start and end of the
+    steps)}."""
+    from uwcv_tpu_torch.data.loader import TrainLoader
+    from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
+
+    t0 = time.perf_counter()
+    trainer = Trainer(tcfg, device=dev)
+    trainer.init_state(seed)
+    loader = TrainLoader(dicts, tcfg, seed=seed, num_workers=1,
+                         process_index=trainer.rank,
+                         process_count=trainer.ranks)
+    # a fine-tune-sized dataset on the device: a step ships its [B] index
+    # vector only
+    dd = loader.device_dataset(dev)
+    if dd is None:
+        loader.start()
+    losses, first = [], 0.0
+    try:
+        batch_iter = (loader.index_batches() if dd is not None
+                      else iter(loader))
+        t1, w1 = time.perf_counter(), time.time()
+        for i in range(max_iter):
+            if dd is not None:
+                idx = trainer._put(next(batch_iter), indexed=True)
+                batch = {k: v.index_select(0, idx) for k, v in dd.items()}
+            else:
+                batch = trainer._put(next(batch_iter), indexed=False)
+            metrics = trainer.train_step(batch,
+                                         step_generator(step_seed, i, dev))
+            if i == 0:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                first = time.perf_counter() - t1
+            if i >= max_iter - 5:
+                losses.append(trainer.global_metrics(metrics)["total_loss"])
+    finally:
+        if dd is None:
+            loader.stop()
+    return trainer, {"setup_s": t1 - t0, "train_s": time.perf_counter() - t1,
+                     "first_step_s": first, "steps": max_iter,
+                     "losses": losses,
+                     "train_span": [w1, time.time()]}
+
+
+def _group_rank(rank: int, spec_path: str) -> None:
+    """One rank of a group trial (``_train_group``): reads the trial's
+    spec, joins the trial's process group on its device, trains its share,
+    and writes its report (device, masters digest, launch counts, peak
+    memory; rank 0 also the trial's record and, with ``spec["params"]``,
+    the trained flat params) beside the spec."""
+    import torch.distributed as dist
+
+    from uwcv_tpu_torch.config import ParallelConfig
+    from uwcv_tpu_torch.engine.checkpoint import save_params_npz
+    from uwcv_tpu_torch.kernels import launch_counts
+    from uwcv_tpu_torch.parallel.mesh import (
+        initialize_multi_host,
+        masters_digest,
+    )
+    from uwcv_tpu_torch.weights import params_to_flax
+
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    torch.set_num_threads(spec["threads"])
+    # the driver's numerics, as a trial in the driver's thread runs with
+    matmul_tf32, cudnn_tf32 = spec["tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    tcfg, dev = spec["cfg"], torch.device(spec["devices"][rank])
+    initialize_multi_host(ParallelConfig(
+        multi_host=True, coordinator_address=spec["init"],
+        num_processes=len(spec["devices"]), process_id=rank,
+        init_timeout_s=tcfg.parallel.init_timeout_s), dev,
+        backend=spec["backend"])
+    joined = time.time()
+    try:
+        trainer, rec = _train_trial(tcfg, spec["dicts"], dev, spec["seed"],
+                                    spec["step_seed"], spec["max_iter"])
+        report = {"device": str(dev),
+                  "masters_sha256": masters_digest(trainer.model),
+                  "launches": launch_counts(),
+                  "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else 0)}
+        if rank == 0:
+            report["trial"] = dict(rec, joined=joined)
+            if spec["params"]:
+                save_params_npz(os.path.join(spec["dir"], "params.npz"),
+                                params_to_flax(trainer.model))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def _train_group(tcfg, dicts, group: List[torch.device], seed: int,
+                 step_seed: int, max_iter: int, threads: int,
+                 want_params: bool):
+    """A trial over a group of k > 1 devices: k spawned ranks of a process
+    group of its own (a ``file://`` rendezvous under the trial's
+    ``output_dir``; NCCL over distinct cards, gloo where a card repeats or
+    on the CPU), each on its share of the global batch.  The whole group
+    is bounded by ``parallel.init_timeout_s`` per step, plus three for the
+    rendezvous, set-up and hand-back: each of those is at most one
+    collective's timeout apart on a healthy run.  A rank that fails or
+    hangs raises here, and the group's other ranks are stopped.  → the
+    trial's record (rank 0's, with ``spawn_s`` and every rank's report)
+    and rank 0's trained flat params (None unless ``want_params``),
+    bit-identical to rank 0's masters."""
+    from uwcv_tpu_torch.parallel.mesh import spawn_ranks
+    from uwcv_tpu_torch.weights import load_npz
+
+    cuda = all(d.type == "cuda" for d in group)
+    backend = "nccl" if cuda and len(set(group)) == len(group) else "gloo"
+    work = os.path.join(tcfg.output_dir, "ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    spec = {"cfg": tcfg, "dicts": dicts, "devices": [str(d) for d in group],
+            "backend": backend, "init": "file://" + os.path.join(
+                os.path.abspath(work), "rendezvous"),
+            "seed": seed, "step_seed": step_seed, "max_iter": max_iter,
+            "threads": threads, "params": want_params, "dir": work,
+            "tf32": (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)}
+    try:
+        # the spec (the dataset dicts among it) goes through a file: a
+        # rank that dies while starting would leave a large spawn payload
+        # half-read, and the write of the rest would block forever
+        spec_path = os.path.join(work, "spec.pkl")
+        with open(spec_path, "wb") as f:
+            pickle.dump(spec, f)
+        t0 = time.time()
+        spawn_ranks(_group_rank, len(group), args=(spec_path,),
+                    timeout=tcfg.parallel.init_timeout_s * (max_iter + 3))
+        reports = []
+        for r in range(len(group)):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        if len({rep["masters_sha256"] for rep in reports}) != 1:
+            raise RuntimeError(f"the {len(group)} ranks' masters differ "
+                               f"after training")
+        rec = reports[0].pop("trial")
+        rec["spawn_s"] = rec.pop("joined") - t0
+        rec["rank_reports"] = reports
+        params = (load_npz(os.path.join(work, "params.npz"))
+                  if want_params else None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rec, params
 
 
 def run_reference_hpo(cfg, n_trials: int = 8, data_dir: Optional[str] = None,
                       max_iter: int = 100, n_parallel: Optional[int] = None,
                       seed: int = 0, space: str = "v1",
-                      device: Optional[Union[str, torch.device]] = None
+                      device: Optional[Union[str, torch.device]] = None,
+                      devices: Optional[Sequence] = None
                       ) -> Dict[str, Any]:
     """Search LR / anchor scale / ROI batch (``space="v1"``), or LR /
     rotation / scale-bar class weight around a pinned recipe (``"v2"``).
@@ -272,33 +442,50 @@ def run_reference_hpo(cfg, n_trials: int = 8, data_dir: Optional[str] = None,
     a Test split it is the mean training loss of the last 5 steps
     (minimized); the result's ``objective`` says which.
 
-    Trials run one per device group (``device_groups``; ``device`` defaults
-    to ``cuda``).  One eval predictor is kept per (group, inference-relevant
-    model config): the key holds every ModelConfig field not tagged
-    ``train``, so trials that differ only in train-only knobs share one,
-    whose weights are swapped with ``Predictor.set_params``.  Each trial
-    records its host seconds of training (``train_s``, ``steps``) and of
-    evaluation (``eval_s``) in ``user_attrs``; the result's
+    Trials run one per device group (``device_groups`` over ``devices``,
+    else over ``device``, which defaults to ``cuda``; ``n_parallel``
+    defaults to one group per device), and a trial's
+    ``solver.ims_per_batch`` is rounded up to a multiple of the group
+    size.  A group of one device trains in its pool thread; a group of k >
+    1 devices trains in k spawned ranks (``_train_group``; the kernels are
+    built here first, so no rank runs ``nvcc``), and a failed or hung rank
+    fails its trial: nothing falls back to fewer devices.  The driver
+    scores every trial on its group's first device.  One eval predictor is
+    kept per (group, inference-relevant model config): the key holds every
+    ModelConfig field not tagged ``train``, so trials that differ only in
+    train-only knobs share one, whose weights are swapped with
+    ``Predictor.set_params``.  Each trial records in ``user_attrs`` its
+    group and rank count (``group``, ``ranks``), its host seconds of
+    set-up, training and evaluation (``setup_s``, ``train_s``, ``steps``,
+    ``eval_s``; a group trial also ``spawn_s``, from the spawn to the
+    joined group, and each rank's report in ``rank_reports``), the last
+    losses and the steps' wall-clock span; the result's
     ``eval_predictors`` counts the predictors built."""
     import dataclasses
-    import json
-    import os
     import queue
-    import time
 
     from uwcv_tpu_torch.config import model_fields_by_scope
     from uwcv_tpu_torch.data.catalog import (
         DatasetCatalog,
         register_superannotate,
     )
-    from uwcv_tpu_torch.data.loader import TrainLoader
     from uwcv_tpu_torch.engine.predictor import Predictor
-    from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
     from uwcv_tpu_torch.eval.coco_eval import evaluate_split
     from uwcv_tpu_torch.weights import params_to_flax
 
-    groups = device_groups(n_parallel or torch.cuda.device_count() or 1,
-                           device)
+    groups = device_groups(
+        n_parallel or (len(devices) if devices is not None
+                       else torch.cuda.device_count() or 1),
+        device, devices)
+    group_size = max(len(g) for g in groups)
+    if group_size > 1 and groups[0][0].type == "cuda":
+        # every rank would run nvcc: build once here
+        from uwcv_tpu_torch import kernels
+
+        kernels.build()
+    # the ranks of the groups running at once share this process's threads
+    rank_threads = max(1, torch.get_num_threads()
+                       // (group_size * len(groups)))
 
     name = cfg.data.train_dataset
     if name not in DatasetCatalog.list():
@@ -351,48 +538,27 @@ def run_reference_hpo(cfg, n_trials: int = 8, data_dir: Optional[str] = None,
         return pred
 
     def train_and_score(trial: Trial, tcfg, gid: int) -> float:
-        dev = groups[gid][0]
-        t0 = time.perf_counter()
-        trainer = Trainer(tcfg, device=dev)
-        trainer.init_state(seed + trial.number)
-        loader = TrainLoader(dicts, tcfg, seed=seed + trial.number,
-                             num_workers=1)
-        # a fine-tune-sized dataset on the device: a step ships its
-        # [B] index vector only
-        dd = loader.device_dataset(dev)
-        if dd is None:
-            loader.start()
-        losses = []
-        try:
-            batch_iter = (loader.index_batches() if dd is not None
-                          else iter(loader))
-            t1 = time.perf_counter()
-            for i in range(max_iter):
-                if dd is not None:
-                    idx = trainer._put(next(batch_iter), indexed=True)
-                    batch = {k: v.index_select(0, idx)
-                             for k, v in dd.items()}
-                else:
-                    batch = trainer._put(next(batch_iter), indexed=False)
-                metrics = trainer.train_step(
-                    batch, step_generator(1000 + trial.number, i, dev))
-                if i >= max_iter - 5:
-                    losses.append(float(metrics["total_loss"]))
-        finally:
-            if dd is None:
-                loader.stop()
-        trial.set_user_attr("setup_s", t1 - t0)
-        trial.set_user_attr("train_s", time.perf_counter() - t1)
-        trial.set_user_attr("steps", max_iter)
+        group = groups[gid]
+        seeds = (seed + trial.number, 1000 + trial.number)
+        if len(group) == 1:
+            trainer, rec = _train_trial(tcfg, dicts, group[0], *seeds,
+                                        max_iter)
+            params = params_to_flax(trainer.model) if use_map else None
+        else:
+            rec, params = _train_group(tcfg, dicts, group, *seeds, max_iter,
+                                       rank_threads, want_params=use_map)
+        for k, v in dict(rec, group=gid, ranks=len(group)).items():
+            trial.set_user_attr(k, v)
         if use_map:
             t0 = time.perf_counter()
-            pred = eval_predictor(gid, tcfg, params_to_flax(trainer.model))
+            pred = eval_predictor(gid, tcfg, params)
             res = evaluate_split(tcfg, eval_dicts, predictor=pred)
             trial.set_user_attr("eval_s", time.perf_counter() - t0)
             v = res["segm"]["AP"]
             if not math.isfinite(v) or v < 0:   # -1 = undefined row
                 v = res["bbox"]["AP"]
             return v if math.isfinite(v) and v >= 0 else 0.0
+        losses = rec["losses"]
         value = float(np.mean(losses)) if losses else float("inf")
         return value if math.isfinite(value) else 1e9
 
@@ -420,8 +586,9 @@ def run_reference_hpo(cfg, n_trials: int = 8, data_dir: Optional[str] = None,
             roi_batch = trial.suggest_categorical("roi_batch", (16, 32, 64))
         tcfg.solver.base_lr = lr
         tcfg.solver.max_iter = max_iter
-        # a group is one device, so the batch needs no rounding to it
-        tcfg.solver.ims_per_batch = max(1, tcfg.solver.ims_per_batch)
+        # the trial's batch must tile its device group's data axis
+        per = max(1, tcfg.solver.ims_per_batch)
+        tcfg.solver.ims_per_batch = -(-per // group_size) * group_size
         tcfg.solver.checkpoint_period = 0
         tcfg.solver.log_period = max(max_iter // 2, 1)
         tcfg.model.roi_batch_size_per_image = int(roi_batch)

@@ -175,6 +175,19 @@ def count_launch(wrapper) -> None:
         wrapper.launches += 1
 
 
+def launch_counts() -> Dict[str, int]:
+    """This process's kernel launches so far, by wrapper (the counters are
+    per process)."""
+    from uwcv_tpu_torch.ops.nms import nms_greedy
+    from uwcv_tpu_torch.ops.roi_align import (
+        roi_align_windows,
+        roi_align_windows_backward,
+    )
+
+    return {f.__name__: f.launches for f in (
+        roi_align_windows, roi_align_windows_backward, nms_greedy)}
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if rc != 0:

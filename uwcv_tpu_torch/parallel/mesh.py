@@ -15,6 +15,10 @@ explicit:
   ``Predictor(mesh=...)`` holds a replica per device and gives each its
   contiguous slice of the batch (``shard_batch``).
 
+``spawn_ranks`` starts the ranks of a group from one driver process (the
+``train`` verb's workers, an HPO trial over a group of devices) and stops
+them all when one fails or the group outlives its deadline.
+
 The model axis (spatial sharding, ``spatial_image_sharding``) is not
 ported: a mesh with a model axis above 1 raises.
 """
@@ -22,8 +26,18 @@ ported: a mesh with a model axis above 1 raises.
 from __future__ import annotations
 
 import datetime
+import hashlib
 import os
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+import time
+from typing import (
+    Callable,
+    Dict,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -126,6 +140,53 @@ class DataAxis:
 
     def barrier(self) -> None:
         dist.barrier()
+
+
+def spawn_ranks(fn: Callable, nprocs: int, args: tuple = (),
+                timeout: Optional[float] = None) -> None:
+    """Run ``fn(rank, *args)`` in ``nprocs`` spawned processes and wait for
+    them all.  A rank that raises or exits non-zero raises here a
+    ``RuntimeError`` naming the rank and its error (the rank's traceback
+    chained); ranks still running after ``timeout`` seconds raise a
+    ``TimeoutError``.  Either way every rank of the group is stopped before
+    this returns.  ``spawn``, not ``fork``: the caller may hold CUDA
+    contexts and threads."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        while True:
+            wait = 5.0 if deadline is None else min(
+                5.0, max(deadline - time.monotonic(), 0.0))
+            try:
+                if ctx.join(timeout=wait):
+                    return
+            except mp.ProcessRaisedException as e:
+                lines = [line for line in e.msg.splitlines() if line.strip()]
+                raise RuntimeError(f"rank {e.error_index} of {nprocs} failed: "
+                                   f"{lines[-1]}") from e
+            except mp.ProcessExitedException as e:
+                raise RuntimeError(f"rank {e.error_index} of {nprocs} exited "
+                                   f"with code {e.exit_code}") from e
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(f"{nprocs} ranks still running after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+
+
+def masters_digest(model: torch.nn.Module) -> str:
+    """sha256 of every parameter and buffer of ``model``: the ranks of a
+    data-parallel run must agree on it bit for bit."""
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def data_axis() -> Optional[DataAxis]:
