@@ -111,7 +111,26 @@ Phases (any failure raises and exits non-zero):
    single-device predictor on each device's slice, then
    ``run_batch_inference`` over 16 16-bit TIFFs at batch 5, each chunk
    padded to the mesh; B1 and B2 2 a batch on each device;
-16. hpo groups: ``run_reference_hpo`` over groups of two devices, each
+16. sp golden: the train golden of phase 8 over a (1, 2) mesh (the
+   model axis): two gloo ranks on ``cuda:0`` and, with two or more cards,
+   two NCCL ranks on ``cuda:0`` and ``cuda:1``; each rank runs the trunk on
+   its rows of both images (halo rows exchanged, the FPN levels gathered)
+   and the heads on the whole levels; losses and step-0 global gradient
+   norms within 1e-3 relative of JAX's, masters bit-identical;
+17. sp train: phase 14's full-width training side over (1, 2) with two
+   gloo ranks sharing ``cuda:0`` (2 images, 2 + 8 steps: a check, not a
+   rate), or over (cards // 2, 2) with one NCCL rank a card (2 images a
+   data row, 2 + 20 steps); ms/step, the halo and gather spans a step
+   (CUDA events), peak memory a rank beside phase 14's; launches and
+   masters as phase 14;
+18. sp predict: the full-width model in f32 (TF32 off) over a (1, 2)
+   mesh ``[cuda:0, cuda:0]`` against the one-device predictor on 4 gray
+   1024×1280 images at the gate golden's limits (valid and classes equal,
+   boxes ≤ 1e-2 px, scores ≤ 1e-4, mask IoU ≥ 0.99); then one seeded
+   4096×5120 micrograph at the default config (bf16, the test size raised
+   to the image) over (1, 1) and, with two or more cards, (1, cards):
+   batch ms and peak memory a card; B1 and B2 2 a batch;
+19. hpo groups: ``run_reference_hpo`` over groups of two devices, each
    trial in two spawned ranks of a process group of its own, scored on
    the driver: one trial at the default config over ``[cuda:0, cuda:0]``
    (two gloo ranks), 10 steps, scored on the hpo phase's 4 test images;
@@ -125,7 +144,7 @@ Phases (any failure raises and exits non-zero):
    just before: B1 2, B1-bwd 2, B2 1 a step a rank, B1 2 and B2 2 an eval
    batch on the driver; seconds per trial (spawn, set-up, training, eval),
    ms/step and peak memory per rank and on the driver's cards;
-17. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
+20. only with ``--against DIR``: the kernel wrappers (``roi_align_windows``,
    ``roi_align_windows_backward``, ``nms_greedy``) of the
    ``uwcv_tpu_torch`` package under DIR, e.g. an
    earlier commit unpacked with ``git archive <commit> uwcv_tpu_torch``,
@@ -2110,15 +2129,17 @@ MESH_BATCH, MESH_FOLDER_BATCH = 8, 5
 
 
 def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
-              norm_rtol: float = 1e-3) -> dict:
+              norm_rtol: float = 1e-3, mesh_shape=(-1, 1)) -> dict:
     """One rank of the data-parallel train golden: the gate checkpoint in
-    f32 (TF32 off), rank r training on row r of the golden's two images
-    with row r of its sampler draws for the golden's 3 SGD steps.  The
-    all-reduced losses of each step must lie within ``loss_rtol`` of the
-    JAX package's global-batch values and the step-0 gradient norms, of
-    the gradients summed over the ranks, within ``norm_rtol``.  Launch
-    counts are zeroed just before the steps.  → losses' and norms' worst
-    relative errors, launches and a digest of the masters."""
+    f32 (TF32 off) over a ``mesh_shape`` (d, m) mesh of the ranks, data
+    row i training on image i of the golden's two (with its rows of the
+    sampler draws) for the golden's 3 SGD steps, its m ranks each running
+    the trunk on its rows of it.  The all-reduced losses of each step must
+    lie within ``loss_rtol`` of the JAX package's global-batch values and
+    the step-0 norms of the global gradients
+    (``Trainer.global_gradients``) within ``norm_rtol``.  Launch counts
+    are zeroed just before the steps.  → losses' and norms' worst relative
+    errors, launches and a digest of the masters."""
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
     from uwcv_tpu_torch.parallel.mesh import masters_digest
@@ -2132,19 +2153,19 @@ def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
         g = {k: z[k] for k in z.files}
     cfg = Config.from_dict(json.loads(str(g["config_json"])))
     cfg.output_dir = os.path.join(out_dir, "golden")
+    cfg.parallel.mesh_shape = tuple(mesh_shape)
     trainer = Trainer(cfg, device=dev)
-    world = trainer.world
-    if world is None or trainer.device != dev:
+    if trainer.group is None or trainer.device != dev:
         raise RuntimeError(f"dp golden: no process group, or the trainer "
                            f"is on {trainer.device}, not {dev}")
     trainer.load_params(load_npz(GATE_CKPT))
-    b = len(g["image"]) // world.size
-    rows = slice(world.rank * b, (world.rank + 1) * b)
+    b = len(g["image"]) // trainer.ranks
+    rows = slice(trainer.rank * b, (trainer.rank + 1) * b)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
     batch = {k: put(g[k]) for k in ("image", "boxes", "classes", "valid",
                                     "masks_packed")}
     steps = sorted({int(k[4:].split("_")[0]) for k in g if k.startswith("step")})
-    worst_loss, worst_norm = 0.0, 0.0
+    worst_loss, worst_norm, losses = 0.0, 0.0, []
     _zero_launch_counts()
     for step in steps:
         draws = {k: put(g[f"step{step}_{k}"])
@@ -2153,18 +2174,18 @@ def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
             batch, step_generator(cfg.solver.seed, step, dev),
             sampler_draws=draws))
         got = np.asarray([m[k] for k in LOSS_KEYS + ("total_loss",)])
+        losses.append(got.tolist())
         want = g[f"step{step}_losses"]
         rel = np.abs(got - want) / np.abs(want)
         worst_loss = max(worst_loss, float(rel.max()))
         if not (rel <= loss_rtol).all():
-            raise RuntimeError(f"dp golden rank {world.rank} step {step}: "
-                               f"losses {got} vs JAX {want}")
+            raise RuntimeError(f"dp golden rank {trainer.group.rank} step "
+                               f"{step}: losses {got} vs JAX {want}")
         if step == 0:
             names = flax_leaf_names(trainer.compute)
-            params = dict(trainer.compute.named_parameters())
+            grads = trainer.global_gradients()
             for k, want_n in zip(g["grad_norm_keys"], g["grad_norms"]):
-                grad = world.all_reduce_sum(params[names[k]].grad.float()
-                                            .clone())
+                grad = grads[names[k]]
                 r = abs(float(grad.norm()) - want_n) / max(want_n, 1e-12)
                 worst_norm = max(worst_norm, r)
                 if r > norm_rtol:
@@ -2173,22 +2194,25 @@ def dp_golden(dev, out_dir: str, loss_rtol: float = 1e-3,
     if cuda:
         torch.backends.cudnn.allow_tf32 = True
     return {"steps": len(steps), "worst_loss_rel": worst_loss,
-            "worst_grad_norm_rel": worst_norm,
+            "worst_grad_norm_rel": worst_norm, "losses": losses,
             "leaves": int(len(g["grad_norm_keys"])),
             "launches": _launch_counts(),
             "masters_sha256": masters_digest(trainer.model)}
 
 
 def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
-             timed: int) -> dict:
+             timed: int, mesh_shape=(-1, 1)) -> dict:
     """One rank of full-width data-parallel training: the default
     ``Config()`` (R50-FPN-256, bf16 compute, f32 masters, 800×800) from
     seeded weights over the 12 gate-split images staged on the rank's
-    device, at a global batch of ``per_rank`` × ranks, through
-    ``Trainer.fit`` (``warmup`` steps, then ``timed`` with CUDA events
-    around each phase of a step, the gradient all-reduce included).
-    Launch counts are zeroed just before and read just after and must be
-    B1 2 a step, B1-bwd 2 and B2 1; every master must be finite."""
+    device, over a ``mesh_shape`` (d, m) mesh of the ranks at a global
+    batch of ``per_rank`` × d (a data row's m ranks split its images'
+    height), through ``Trainer.fit`` (``warmup`` steps, then ``timed``
+    with CUDA events around each phase of a step, the gradient all-reduce
+    included, and around each halo exchange and level gather of a model
+    axis).  Launch counts are zeroed just before and read just after and
+    must be B1 2 a step, B1-bwd 2 and B2 1; every master must be
+    finite."""
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.data.classes import ClassRegistry
     from uwcv_tpu_torch.data.loader import TrainLoader
@@ -2199,19 +2223,22 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
     cfg = Config()
     cfg.output_dir = os.path.join(out_dir, "train")
     cfg.solver.checkpoint_period = 0
-    cfg.solver.ims_per_batch = per_rank * torch.distributed.get_world_size()
+    cfg.parallel.mesh_shape = tuple(mesh_shape)
+    cfg.solver.ims_per_batch = per_rank * (
+        torch.distributed.get_world_size() // max(mesh_shape[1], 1))
     registry = ClassRegistry.load(os.path.join(GATE_SPLIT, "classes.csv"))
     dicts = get_superannotate_dicts(os.path.join(GATE_SPLIT, "Test"),
                                     registry=registry)
     trainer = Trainer(cfg, device=dev)
-    world = trainer.world
-    if world is None or trainer.device != dev:
+    rank = trainer.group.rank if trainer.group else 0
+    if trainer.group is None or trainer.device != dev:
         raise RuntimeError(f"dp train: no process group, or the trainer is "
                            f"on {trainer.device}, not {dev}")
     cfg = trainer.cfg
     trainer.load_params(seeded_flax_params(cfg.model, 0))
     loader = TrainLoader(dicts, cfg, seed=cfg.solver.seed,
-                         process_index=world.rank, process_count=world.size)
+                         process_index=trainer.rank,
+                         process_count=trainer.ranks)
     dd = loader.device_dataset(dev)
     if dd is None:
         raise RuntimeError("the gate split does not fit the device budget")
@@ -2220,32 +2247,42 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
                                 log_fn=lambda *_: None, device_dataset=dd)
     cuda = dev.type == "cuda"
     sync = lambda: torch.cuda.synchronize(dev) if cuda else None
+    axis = trainer.model_axis
     _zero_launch_counts()
     fit(warmup)
     trainer.marks = [] if cuda else None
+    if axis is not None and cuda:
+        axis.spans = []
     sync()
     t0 = time.perf_counter()
     fit(timed)
     sync()
     wall = time.perf_counter() - t0
     marks, trainer.marks = trainer.marks or [], None
+    spans = []
+    if axis is not None:
+        spans, axis.spans = axis.spans or [], None
     launches = _launch_counts()
     n = warmup + timed
     want = {"roi_align_windows": 2 * n, "roi_align_windows_backward": 2 * n,
             "nms_greedy": n}
     if launches != want:
-        raise RuntimeError(f"dp train rank {world.rank}: launches "
+        raise RuntimeError(f"dp train rank {rank}: launches "
                            f"{launches}, expected {want}")
     if not all(torch.isfinite(p).all() for p in trainer.model.parameters()):
-        raise RuntimeError(f"dp train rank {world.rank}: a master weight is "
+        raise RuntimeError(f"dp train rank {rank}: a master weight is "
                            f"not finite")
     split, prev = {}, None
     for name, ev in marks:
         if prev is not None and name != "start":
             split[name] = split.get(name, 0.0) + prev.elapsed_time(ev) / timed
         prev = ev
+    for name, a, b in spans:
+        split[f"model axis {name}"] = (split.get(f"model axis {name}", 0.0)
+                                       + a.elapsed_time(b) / timed)
     rec = {"launches": launches, "steps": n, "timed": timed,
            "global_batch": cfg.solver.ims_per_batch, "wall_s": wall,
+           "mesh_shape": [trainer.ranks, axis.size if axis else 1],
            "split_ms": split, "masters_sha256": masters_digest(trainer.model),
            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                         if cuda else 0.0)}
@@ -2262,10 +2299,12 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
 
 
 def dp_rank(rank: int, world: int, init: str, backend: str, device: str,
-            phases: tuple, out_dir: str, train_shape: tuple) -> None:
+            phases: tuple, out_dir: str, train_shape: tuple,
+            mesh_shape: tuple) -> None:
     """A rank of ``run_ranks``: joins the group on its device (the CPU,
     ``cuda:rank`` under NCCL, ``cuda:0`` for gloo ranks sharing one card),
-    runs ``phases`` and writes their records to ``rank<r>.json``."""
+    runs ``phases`` over a ``mesh_shape`` mesh of the ranks and writes
+    their records to ``rank<r>.json``."""
     from uwcv_tpu_torch.config import ParallelConfig
     from uwcv_tpu_torch.parallel.mesh import initialize_multi_host
 
@@ -2280,9 +2319,10 @@ def dp_rank(rank: int, world: int, init: str, backend: str, device: str,
     try:
         rec = {"device": str(dev), "backend": backend}
         if "golden" in phases:
-            rec["golden"] = dp_golden(dev, out_dir)
+            rec["golden"] = dp_golden(dev, out_dir, mesh_shape=mesh_shape)
         if "train" in phases:
-            rec["train"] = dp_train(dev, out_dir, *train_shape)
+            rec["train"] = dp_train(dev, out_dir, *train_shape,
+                                    mesh_shape=mesh_shape)
     finally:
         torch.distributed.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -2290,13 +2330,14 @@ def dp_rank(rank: int, world: int, init: str, backend: str, device: str,
 
 
 def run_ranks(world: int, backend: str, device: str, phases: tuple,
-              out_dir: str, timeout: float, train_shape: tuple = DP_SHARED
-              ) -> list:
+              out_dir: str, timeout: float, train_shape: tuple = DP_SHARED,
+              mesh_shape: tuple = (-1, 1)) -> list:
     """``world`` processes of ``dp_rank`` (spawned, a ``file://``
-    rendezvous under ``out_dir``), joined within ``timeout`` seconds: a
-    rank that fails or hangs fails the call, and every rank is stopped.
-    → each rank's record, in rank order; the masters must be
-    bit-identical across ranks after every phase."""
+    rendezvous under ``out_dir``) over a ``mesh_shape`` (d, m) mesh,
+    joined within ``timeout`` seconds: a rank that fails or hangs fails
+    the call, and every rank is stopped.  → each rank's record, in rank
+    order; the masters must be bit-identical across ranks after every
+    phase."""
     from uwcv_tpu_torch.parallel.mesh import spawn_ranks
 
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -2304,7 +2345,8 @@ def run_ranks(world: int, backend: str, device: str, phases: tuple,
     init = "file://" + os.path.join(out_dir, "rendezvous")
     spawn_ranks(dp_rank, world, args=(world, init, backend, device,
                                       tuple(phases), out_dir,
-                                      tuple(train_shape)), timeout=timeout)
+                                      tuple(train_shape), tuple(mesh_shape)),
+                timeout=timeout)
     recs = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -2504,6 +2546,214 @@ def run_mesh_predict(devices: list) -> dict:
             "launches": total}
 
 
+# ---------------------------------------------------------------- model axis
+
+# full-width training over a model axis: (images per data row, warm-up,
+# timed)
+SP_SHARED = (2, 2, 8)        # (1, 2): two gloo ranks sharing one card
+SP_CARDS = (2, 2, 20)        # (cards // 2, 2): one NCCL rank per card
+SP_BATCH = 4                 # sp predict's batch of 1024×1280 images
+GIANT = (4096, 5120)         # one large micrograph, batch 1
+
+
+def run_model_axis(n_cards: int, dp: dict) -> dict:
+    """[sp golden] and [sp train]: the train golden over a (1, 2) mesh of
+    two gloo ranks on ``cuda:0`` (and, with two or more cards, of two NCCL
+    ranks on ``cuda:0`` and ``cuda:1``), each rank running the trunk on
+    half of each image's rows; then the default training side (R50-FPN-256
+    bf16, 800×800, 2 images a data row) over (1, 2) on one card (two gloo
+    ranks sharing it: a check, not a rate) or (cards // 2, 2) with one
+    NCCL rank a card, beside (cards // 2, 1) at the same images a data row,
+    its peak memory a rank beside those runs' and the [dp train] run's
+    (``dp``).  ``run_ranks`` fails on unequal masters; the halo and gather
+    spans are CUDA events around each exchange."""
+    work = os.path.join(WORK, "sp")
+    out = {"golden": {}, "train": {}}
+    phases = ("golden", "train") if n_cards == 1 else ("golden",)
+    recs = run_ranks(2, "gloo", "cuda", phases, os.path.join(work, "gloo"),
+                     timeout=600, train_shape=SP_SHARED, mesh_shape=(1, 2))
+    out["golden"]["gloo, (1, 2) on cuda:0"] = recs
+    if n_cards == 1:
+        out["train"]["gloo, (1, 2) shares cuda:0"] = recs
+        log("  [sp] one card: the NCCL runs ((1, 2) over cuda:0 + cuda:1; "
+            "(cards // 2, 2)) need two cards and are skipped")
+    else:
+        out["golden"]["nccl, (1, 2) over cuda:0 + cuda:1"] = run_ranks(
+            2, "nccl", "cuda", ("golden",), os.path.join(work, "nccl2"),
+            timeout=600, mesh_shape=(1, 2))
+        d = n_cards // 2
+        out["train"][f"nccl, ({d}, 2), one rank a card"] = run_ranks(
+            2 * d, "nccl", "cuda", ("train",),
+            os.path.join(work, f"nccl{2 * d}"), timeout=900,
+            train_shape=SP_CARDS, mesh_shape=(d, 2))
+        ref = run_ranks(d, "nccl", "cuda", ("train",),
+                        os.path.join(work, f"nccl{d}x1"), timeout=900,
+                        train_shape=SP_CARDS, mesh_shape=(d, 1))
+        out["reference"] = ref
+        dp = {"train": dict(dp["train"], **{
+            f"nccl, ({d}, 1), the same images a data row": ref})}
+        t = ref[0]["train"]
+        log(f"  ({d}, 1) reference, R50-FPN-256 bf16, NCCL: global batch "
+            f"{t['global_batch']}, {t['ms_per_step']:.1f} ms/step over "
+            f"{t['timed']} steps; step split, rank 0 (CUDA events, "
+            f"ms/step): " + json.dumps({k: round(v, 3) for k, v in
+                                        t["split_ms"].items()}))
+    for name, recs in out["golden"].items():
+        g = [r["golden"] for r in recs]
+        log(f"  sp golden ({name}): {g[0]['steps']} SGD steps, losses "
+            f"within {max(x['worst_loss_rel'] for x in g):.2e} rel of JAX's "
+            f"global batch, {g[0]['leaves']} step-0 global gradient norms "
+            f"within {max(x['worst_grad_norm_rel'] for x in g):.2e}; "
+            f"masters bit-identical across ranks; launches per rank "
+            f"{[x['launches'] for x in g]}")
+    dp_peak = {name: max(r["train"]["peak_gib"] for r in recs)
+               for name, recs in dp["train"].items()}
+    for name, recs in out["train"].items():
+        t = [r["train"] for r in recs]
+        ms = t[0]["ms_per_step"]
+        split = t[0]["split_ms"]
+        log(f"  sp train full width R50-FPN-256 bf16 ({name}): mesh "
+            f"{tuple(t[0]['mesh_shape'])}, global batch "
+            f"{t[0]['global_batch']}, {ms:.1f} ms/step"
+            + (" (two ranks share one card: a check, not a rate)"
+               if name.startswith("gloo") else "")
+            + f" over {t[0]['timed']} steps after "
+            f"{t[0]['steps'] - t[0]['timed']} warm-up (rank 0's host "
+            f"clock); halo {split.get('model axis halo', 0.0):.2f} and "
+            f"gather {split.get('model axis gather', 0.0):.2f} ms/step on "
+            f"rank 0 (CUDA events around each exchange); masters "
+            f"bit-identical; total loss {t[0]['total_loss_first_last']}; "
+            f"launches per rank {[x['launches'] for x in t]}; peak per rank "
+            f"{[round(x['peak_gib'], 2) for x in t]} GiB, beside [dp train] "
+            + json.dumps({k: round(v, 2) for k, v in dp_peak.items()}))
+        log("  sp train step split, rank 0 (CUDA events, ms/step): "
+            + json.dumps({k: round(v, 3) for k, v in split.items()}))
+    return out
+
+
+def _compare_golden_limits(got, want, what: str) -> dict:
+    """``got`` against ``want`` (lists of Instances) at the gate golden's
+    limits (PERF.md §2): valid counts and classes equal, boxes within 1e-2
+    px, scores within 1e-4, mask IoU ≥ 0.99.  → the worst of each."""
+    worst = {"box": 0.0, "score": 0.0, "iou": 1.0, "instances": 0}
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.valid.sum() != b.valid.sum() or not np.array_equal(
+                a.classes[a.valid], b.classes[b.valid]):
+            raise RuntimeError(f"{what} image {i}: {a.valid.sum()} valid vs "
+                               f"{b.valid.sum()}, or other classes")
+        va, vb = a.valid, b.valid
+        worst["box"] = max(worst["box"], float(np.abs(
+            a.boxes[va] - b.boxes[vb]).max(initial=0.0)))
+        worst["score"] = max(worst["score"], float(np.abs(
+            a.scores[va] - b.scores[vb]).max(initial=0.0)))
+        for ma, mb in zip(a.masks[va], b.masks[vb]):
+            worst["iou"] = min(worst["iou"], _mask_iou(ma, mb))
+        worst["instances"] += int(va.sum())
+    if worst["box"] > 1e-2 or worst["score"] > 1e-4 or worst["iou"] < 0.99:
+        raise RuntimeError(f"{what}: beyond the golden limits: {worst}")
+    return worst
+
+
+def run_sp_predict(cards: list) -> dict:
+    """[sp predict]: the full-width model (R50-FPN-256, seeded) in f32
+    with TF32 off over a (1, 2) mesh of ``cards[0]`` twice against the
+    one-device predictor on a batch of ``SP_BATCH`` gray 1024×1280 images,
+    at the gate golden's limits; then one seeded ``GIANT`` micrograph at
+    the default config (bf16; the test size raised to the image) on (1, 1)
+    and, with two or more ``cards``, (1, cards): peak memory a card, batch
+    ms, and the mesh's outputs beside the one card's (not gated: bf16 and
+    cuDNN's per-shape algorithms round differently).  Launch counts are
+    zeroed just before each mesh batch: B1 and B2 2 a batch on the row's
+    first device."""
+    from uwcv_tpu_torch.config import Config, ParallelConfig
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.parallel.mesh import build_mesh
+
+    want_l = {"roi_align_windows": 2, "roi_align_windows_backward": 0,
+              "nms_greedy": 2}
+    launches = {k: 0 for k in want_l}
+    rec = {}
+    cuda = torch.device(cards[0]).type == "cuda"
+
+    def mesh_batch(pred, images, what):
+        pred.predict_batch(images)                      # warm-up
+        for dev in set(pred.mesh.devices.flat) if cuda else ():
+            torch.cuda.synchronize(dev)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        got = pred.predict_batch(images)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _launch_counts()
+        if counts != want_l:
+            raise RuntimeError(f"{what}: launches {counts}, expected "
+                               f"{want_l}")
+        for k, v in counts.items():
+            launches[k] += v
+        return got, ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config()
+    cfg.model.dtype = "float32"
+    cfg.model.roi_score_thresh_test = 0.0
+    params = seeded_flax_params(cfg.model, 0)
+    rng = np.random.default_rng(5)
+    images = [np.repeat(rng.integers(0, 256, (1024, 1280, 1),
+                                     dtype=np.uint8), 3, axis=-1)
+              for _ in range(SP_BATCH)]
+    want = Predictor(cfg, params, device=cards[0]).predict_batch(images)
+    pair = [cards[0], cards[0]]
+    pred = Predictor(cfg, params, mesh=build_mesh(
+        ParallelConfig(mesh_shape=(1, 2)), pair))
+    got, ms = mesh_batch(pred, images, "sp predict (1, 2)")
+    rec["f32 (1, 2) vs one device"] = dict(
+        _compare_golden_limits(got, want, "sp predict (1, 2)"), batch_ms=ms)
+    del pred
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    log(f"  sp predict R50-FPN-256 f32 (TF32 off), batch {SP_BATCH} of "
+        f"1024×1280 over (1, 2) {pair} vs one device: "
+        + json.dumps(rec["f32 (1, 2) vs one device"]))
+
+    cfg = Config()
+    cfg.model.roi_score_thresh_test = 0.0
+    cfg.input.pad_size_test = GIANT
+    cfg.input.test_short_edge, cfg.input.test_max_size = GIANT
+    params = seeded_flax_params(cfg.model, 0)
+    giant = [np.repeat(np.random.default_rng(7).integers(
+        0, 256, GIANT + (1,), dtype=np.uint8), 3, axis=-1)]
+    base = None
+    for devices in [cards[:1]] + ([cards] if len(cards) > 1 else []):
+        for dev in devices if cuda else ():
+            torch.cuda.reset_peak_memory_stats(dev)
+        pred = Predictor(cfg, params, mesh=build_mesh(
+            ParallelConfig(mesh_shape=(1, len(devices))), devices))
+        what = f"sp predict {GIANT[0]}×{GIANT[1]} (1, {len(devices)})"
+        (inst,), ms = mesh_batch(pred, giant, what)
+        if not (np.isfinite(inst.boxes).all()
+                and np.isfinite(inst.scores).all() and inst.valid.any()):
+            raise RuntimeError(f"{what}: non-finite or no detections")
+        r = {"devices": devices, "batch_ms": ms, "valid": int(
+            inst.valid.sum()), "peak_gib_per_card": [
+                round(torch.cuda.max_memory_allocated(d) / 2**30, 3)
+                for d in sorted(set(devices))] if cuda else None}
+        if base is None:
+            base = inst
+        else:
+            n = int(min(inst.valid.sum(), base.valid.sum()))
+            r["vs (1, 1)"] = {
+                "valid": [int(inst.valid.sum()), int(base.valid.sum())],
+                "max_score_diff": float(np.abs(
+                    inst.scores[:n] - base.scores[:n]).max(initial=0.0)),
+                "classes_equal": bool(np.array_equal(
+                    inst.classes[:n], base.classes[:n]))}
+        rec[f"giant (1, {len(devices)})"] = r
+        log(f"  {what}, R50-FPN-256 bf16: " + json.dumps(r))
+        del pred
+    rec["launches"] = launches
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", metavar="DIR",
@@ -2600,6 +2850,18 @@ def main(argv=None) -> int:
         f"{folder['img_per_s']:.3f} (one device, batch 8); the mesh's batch "
         f"of 8 {8e3 / mesh['batch_ms']:.2f} img/s (one batch, host clock)")
 
+    log("[sp golden] + [sp train] the model axis: image height over "
+        "ranks, halo-exchanged trunk")
+    t0 = time.perf_counter()
+    sp = run_model_axis(n_cards, dp)
+    log(f"  [sp golden] + [sp train]: {time.perf_counter() - t0:.1f} s")
+
+    log("[sp predict] the model axis in one process: Predictor over a "
+        "(1, m) mesh")
+    t0 = time.perf_counter()
+    sp_predict = run_sp_predict([f"cuda:{i}" for i in range(n_cards)])
+    log(f"  [sp predict]: {time.perf_counter() - t0:.1f} s")
+
     log("[hpo groups] trials over groups of devices, ranks spawned per trial")
     t0 = time.perf_counter()
     groups = run_hpo_groups(hpo["paths"])
@@ -2624,6 +2886,9 @@ def main(argv=None) -> int:
               "dp golden": _dp_launches(dp, "golden"),
               "dp train": _dp_launches(dp, "train"),
               "mesh predict": mesh["launches"],
+              "sp golden": _dp_launches(sp, "golden"),
+              "sp train": _dp_launches(sp, "train"),
+              "sp predict": sp_predict["launches"],
               "hpo groups": groups["launches"]}
 
     def counts(name):
@@ -2669,7 +2934,8 @@ def main(argv=None) -> int:
                     "eval": gate_eval, "train_golden": train_golden,
                     "train": train, "pth_import": pth, "hpo": hpo,
                     "export": export, "data_parallel": dp,
-                    "mesh_predict": mesh, "hpo_groups": groups},
+                    "mesh_predict": mesh, "model_axis": sp,
+                    "sp_predict": sp_predict, "hpo_groups": groups},
                    default=str))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -583,3 +583,84 @@ def test_data_parallel_training_and_mesh_predict_over_cards(second_card):
     assert runs[0]["train"]["global_batch"] == 2 * n
     rec = chip_smoke.run_mesh_predict([f"cuda:{i}" for i in range(n)])
     assert rec["launches"]["roi_align_windows"] > 0
+
+
+def test_spatial_trunk_on_card_matches_the_plain_trunk(dev):
+    """The model axis in one process on the card (``DeviceRow`` of
+    ``[cuda:0, cuda:0]``): ResNet-26 + FPN-64 on two row shards of 2 × 320
+    × 256 images (an uneven split) equals the plain trunk within 1e-5 of
+    each level's largest value in f32 with TF32 off, p2–p5 channels-last,
+    and the halo-exchanged 3×3 conv's input and weight gradients equal
+    the unsharded conv's within 1e-4 of their largest."""
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.models.rcnn import MaskRCNN
+    from uwcv_tpu_torch.parallel import mesh, spatial
+    from uwcv_tpu_torch.weights import params_from_flax
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = Config()
+        m = cfg.model
+        m.depth, m.fpn_channels, m.box_fc_dim, m.dtype = 26, 64, 64, \
+            "float32"
+        model = MaskRCNN(m)
+        model.load_state_dict(params_from_flax(seeded_flax_params(m, 0)),
+                              strict=True)
+        model = model.to(dev).eval().requires_grad_(False)
+        g = torch.Generator().manual_seed(0)
+        images = (torch.rand(2, 320, 256, 3, generator=g) * 255).to(dev)
+        axis = spatial.DeviceRow([dev, dev])
+        got = model.features(images, axis)
+        want = model.features(images)
+        for k in want:
+            # p6 is a strided view of p5 in the plain trunk
+            assert k == "p6" or got[k].is_contiguous(
+                memory_format=torch.channels_last)
+            torch.testing.assert_close(
+                got[k], want[k], rtol=1e-5,
+                atol=1e-5 * float(want[k].abs().max()))
+        conv = torch.nn.Conv2d(16, 16, 3, padding=1).to(dev)
+        x = torch.randn(2, 16, 320, 64, generator=g).to(dev)
+        x.requires_grad_(True)
+        gy = torch.randn(2, 16, 320, 64, generator=g).to(dev)
+        (conv(x) * gy).sum().backward()
+        want_dx, want_dw = x.grad.clone(), conv.weight.grad.clone()
+        x.grad, conv.weight.grad = None, None
+        rows = mesh.height_shards(320, 2)
+        y = spatial.spatial_conv2d(
+            spatial.Shards([x[:, :, a:b] for a, b in rows]), conv, axis)
+        (spatial.gather_rows(y, axis, spatial.level_heights(rows, 1))
+         * gy).sum().backward()
+        for got_g, want_g in ((x.grad, want_dx), (conv.weight.grad, want_dw)):
+            torch.testing.assert_close(got_g, want_g, rtol=1e-4,
+                                       atol=1e-4 * float(want_g.abs().max()))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def test_model_axis_training_and_predict_over_cards(second_card):
+    """``chip_smoke.py``'s model-axis phases over every card: the train
+    golden over (1, 2) as two gloo ranks on cuda:0 and two NCCL ranks on
+    cuda:0 and cuda:1, the full-width training side over (cards // 2, 2)
+    with one NCCL rank a card (masters bit-identical, every kernel on
+    every rank), and the predictor over (1, 2) and over (1, cards)."""
+    import chip_smoke
+    from uwcv_tpu_torch import kernels
+
+    kernels.build()
+    n = torch.cuda.device_count()
+    sp = chip_smoke.run_model_axis(n, {"train": {}})
+    assert set(sp["golden"]) == {"gloo, (1, 2) on cuda:0",
+                                 "nccl, (1, 2) over cuda:0 + cuda:1"}
+    (runs,) = sp["train"].values()
+    assert [r["device"] for r in runs] == [f"cuda:{i}"
+                                           for i in range(n // 2 * 2)]
+    assert runs[0]["train"]["mesh_shape"] == [n // 2, 2]
+    rec = chip_smoke.run_sp_predict([f"cuda:{i}" for i in range(n)])
+    assert rec["launches"]["roi_align_windows"] == 6
+    assert f"giant (1, {n})" in rec

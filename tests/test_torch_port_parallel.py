@@ -52,13 +52,17 @@ def test_mesh_shape_over_an_explicit_device_list():
 
 
 def test_model_axis_raises():
-    """Spatial sharding is not ported: a model axis of 2 raises, naming
-    ROADMAP's entry (JAX builds a 4 × 2 mesh)."""
-    assert dict(j_mesh.build_mesh(JaxPar(mesh_shape=(-1, 2))).shape) == {
-        "data": 4, "model": 2}
-    with pytest.raises(NotImplementedError, match="spatial_image_sharding"):
-        mesh.build_mesh(ParallelConfig(mesh_shape=(-1, 2)),
-                        devices=["cpu"] * 8)
+    """A model axis of 2 no longer raises: over 8 devices the port builds
+    JAX's (-1, 2) mesh, 4 × 2, its devices in JAX's order (data row i
+    holds devices 2i and 2i + 1)."""
+    want = j_mesh.build_mesh(JaxPar(mesh_shape=(-1, 2)))
+    got = mesh.build_mesh(ParallelConfig(mesh_shape=(-1, 2)),
+                          devices=[torch.device("cuda", i)
+                                   for i in range(8)])
+    assert got.shape == dict(want.shape) == {"data": 4, "model": 2}
+    assert got.axis_names == tuple(want.axis_names)
+    assert [[d.index for d in row] for row in got.devices] == \
+        [[d.id for d in row] for row in want.devices]
 
 
 def test_shard_batch_gives_each_device_jax_rows():
@@ -95,7 +99,7 @@ def test_replicate_puts_a_copy_on_each_device():
 def test_initialize_multi_host_is_idempotent(tmp_path):
     """Without ``multi_host`` nothing is joined; with it a one-process
     gloo group from a ``file://`` address, which a second call keeps;
-    ``data_axis`` is None for one process."""
+    ``mesh_axes`` gives no axes for one process."""
     import torch.distributed as dist
 
     assert not mesh.initialize_multi_host(ParallelConfig(), "cpu")
@@ -107,7 +111,7 @@ def test_initialize_multi_host_is_idempotent(tmp_path):
         assert mesh.initialize_multi_host(cfg, "cpu") is False
         assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
         assert mesh.initialize_multi_host(cfg, "cpu") is False
-        assert mesh.data_axis() is None
+        assert mesh.mesh_axes() == (None, None, None)
     finally:
         dist.destroy_process_group()
 

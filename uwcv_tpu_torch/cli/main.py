@@ -79,7 +79,9 @@ def cmd_train(args) -> int:
     ``torchrun`` this process is one rank of the group; launched alone on
     a host with several cards and a data axis of -1
     (``parallel.mesh_shape``), it starts one worker per card.  On the CPU,
-    ``-o parallel.num_processes=N`` starts N gloo workers."""
+    ``-o parallel.num_processes=N`` starts N gloo workers.  A model axis
+    (``parallel.mesh_shape = d,m``) splits each image's height over the m
+    ranks of a data row: d·m workers, rank r at data index r // m."""
     cfg = _build_cfg(args)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         cfg.parallel.multi_host = True          # a rank under torchrun
@@ -104,9 +106,9 @@ def cmd_train(args) -> int:
 
 def _local_world(cfg: Config, device: str) -> int:
     """The processes ``train`` starts when launched alone: one per device
-    of the data axis (``parallel.mesh_shape[0]``, -1 for every card; a
-    named card, ``cuda:1``, is one), or ``parallel.num_processes`` on the
-    CPU."""
+    of the (d, m) mesh (``parallel.mesh_shape``; d = -1 takes every card
+    divided by m; a named card, ``cuda:1``, is one), or
+    ``parallel.num_processes`` on the CPU."""
     from uwcv_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -116,11 +118,14 @@ def _local_world(cfg: Config, device: str) -> int:
         return 1
     import torch
 
-    d, n = cfg.parallel.mesh_shape[0], torch.cuda.device_count()
-    if d > n:
-        raise ValueError(f"parallel.mesh_shape asks for {d} cards, "
-                         f"{n} visible")
-    return n if d == -1 else d
+    d, m = cfg.parallel.mesh_shape
+    m, n = max(m, 1), torch.cuda.device_count()
+    if d == -1:
+        d = n // m
+    if d < 1 or d * m > n:
+        raise ValueError(f"parallel.mesh_shape {tuple(cfg.parallel.mesh_shape)}"
+                         f" asks for {max(d, 1) * m} cards, {n} visible")
+    return d * m
 
 
 def _free_port() -> int:
@@ -158,8 +163,11 @@ def _train(cfg: Config, args) -> int:
         trainer = Trainer(cfg, device=dev)
         say = print if trainer.is_writer else (lambda *_: None)
         dicts = _load_dataset(cfg, "Train", args.data_dir)
+        ranks = trainer.group.size if trainer.group else 1
         say(f"train dataset: {len(dicts)} images, output: {cfg.output_dir}"
-            + (f", {trainer.ranks} ranks" if trainer.ranks > 1 else ""))
+            + (f", {ranks} ranks" if ranks > 1 else "")
+            + (f" as a {trainer.ranks}×{trainer.model_axis.size} mesh"
+               if trainer.model_axis else ""))
         trainer.resume_or_load(resume=args.resume)
         loader = TrainLoader(dicts, cfg, seed=cfg.solver.seed,
                              process_index=trainer.rank,

@@ -9,10 +9,14 @@ filter and bit-pack; the host pulls the valid prefix and builds padded
 (``engine/export.py``) through the same host API.
 
 With a ``mesh`` (``parallel/mesh.py``) one process holds a replica of the
-model on each device of the data axis: a batch staged as one is split into
-contiguous slices, each device runs the device program on its slice from
-its own thread (the morphology loops wait on the host each pass, so one
-thread would serialize the devices), and the results merge in batch order.
+model on the first device of each data row: a batch staged as one is
+split into contiguous slices, each row runs the device program on its
+slice from its own thread (the morphology loops wait on the host each
+pass, so one thread would serialize the rows), and the results merge in
+batch order.  Over a model axis (m > 1) a row's trunk runs on its m
+devices, the image's height split over them (``parallel/spatial.py``:
+halo rows and the FPN levels move by copies, ``DeviceRow``); the row's
+first device gathers the levels and runs the heads and the mask tail.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from uwcv_tpu_torch.parallel.mesh import (
     shard_batch,
     to_device,
 )
+from uwcv_tpu_torch.parallel.spatial import DeviceRow
 from uwcv_tpu_torch.structures.instances import Instances
 from uwcv_tpu_torch.utils.device import (
     HostStages,
@@ -73,7 +78,7 @@ class PulledBatch(NamedTuple):
 @torch.no_grad()
 def device_program(model: MaskRCNN, cfg: Config, images: torch.Tensor,
                    scales: torch.Tensor, out_sizes: torch.Tensor, canvas,
-                   unit_scale: Optional[bool] = None):
+                   unit_scale: Optional[bool] = None, model_axis=None):
     """The predictor's device program: the optional resample, Mask R-CNN
     inference, the head-resolution mask cleanup, the paste, overlap claim,
     min-pixel filter and bit-pack.  ``Predictor._run`` runs it eagerly and
@@ -85,7 +90,8 @@ def device_program(model: MaskRCNN, cfg: Config, images: torch.Tensor,
     ``unit_scale`` says whether every scale is 1 (the host already
     resampled, so the device resample is an identity); None decides it on
     the device with ``torch.cond``, as the JAX package's ``lax.cond``
-    (predictor.py:199-209) does, which is how an exported program runs."""
+    (predictor.py:199-209) does, which is how an exported program runs.
+    ``model_axis`` (a ``DeviceRow``) runs the trunk on row shards."""
     mch, mcw = canvas
     if images.shape[-1] == 1:
         # grayscale transfer: one channel shipped, re-broadcast to RGB
@@ -113,7 +119,7 @@ def device_program(model: MaskRCNN, cfg: Config, images: torch.Tensor,
     else:
         resized = (as_is if unit_scale else resample)(*operands)
 
-    dets, mask_probs = model.inference(resized)
+    dets, mask_probs = model.inference(resized, model_axis)
     if mask_probs is None:   # box-only config (mask_on=False)
         return dets, None, dets.valid
 
@@ -156,9 +162,12 @@ class Predictor:
     or None to keep the model's own initialisation.  ``device`` defaults to
     ``cuda`` and raises when there is none; tests pass ``device="cpu"``.
 
-    ``mesh`` (``parallel/mesh.py::build_mesh``): a replica on each device
-    of its data axis, which replaces ``device``; a batch must then be a
-    multiple of the data axis (``run_batch_inference`` pads its tail)."""
+    ``mesh`` (``parallel/mesh.py::build_mesh``): a replica on the first
+    device of each data row, which replaces ``device``; a batch must then
+    be a multiple of the data axis (``run_batch_inference`` pads its
+    tail).  A model axis above 1 splits each image's height over its row's
+    devices; the canvas must then give each of them rows
+    (``mesh.height_shards``)."""
 
     def __init__(self, cfg: Config, params=None,
                  device: Optional[Union[str, torch.device]] = None,
@@ -179,7 +188,11 @@ class Predictor:
         self.replicas = (replicate(model, mesh) if mesh is not None
                          else [model.to(self.device)])
         self.model = self.replicas[0]
-        # a thread per device drives its replica
+        # each data row's model axis, where it has one
+        self.row_axes = ([DeviceRow(row) for row in mesh.devices]
+                         if mesh is not None and mesh.devices.shape[1] > 1
+                         else [None] * len(self.devices))
+        # a thread per data row drives its replica
         self._pool = (ThreadPoolExecutor(len(self.devices))
                       if mesh is not None else None)
         if params is not None:
@@ -216,6 +229,7 @@ class Predictor:
         self.devices = [self.device]
         self.model = None
         self.replicas = []
+        self.row_axes = [None]
         self._pool = None
         self.pad_h, self.pad_w = cfg.input.pad_size_test
         self._run, self.exported_batch, self.exported_canvas = \
@@ -225,17 +239,20 @@ class Predictor:
     # -------- device program --------
 
     def _run(self, images: torch.Tensor, scales: np.ndarray,
-             out_sizes: torch.Tensor, model_canvas=None, model=None):
+             out_sizes: torch.Tensor, model_canvas=None, model=None,
+             model_axis=None):
         """images [B,Hc,Wc,3|1] uint8 host-padded (on the device); scales
         [B] host floats; out_sizes [B,2] (true resized h, w) → (Detections,
         packed masks [B,D,H,W/8] uint8 | None, keep [B,D] bool).  The host
         knows the scales, so it picks the unit-scale fast path itself.
-        ``model``: the replica to run (default the first)."""
+        ``model``: the replica to run (default the first); ``model_axis``:
+        its row's ``DeviceRow``, if any."""
         return device_program(
             model or self.model, self.cfg, images,
             torch.as_tensor(scales, dtype=torch.float32), out_sizes,
             model_canvas or (self.pad_h, self.pad_w),
-            unit_scale=bool(np.all(np.asarray(scales) == 1.0)))
+            unit_scale=bool(np.all(np.asarray(scales) == 1.0)),
+            model_axis=model_axis)
 
     # -------- host API --------
 
@@ -298,7 +315,7 @@ class Predictor:
                              block: bool = True):
         """Run a batch, returning device-resident results: (Detections,
         packed masks | None, keep, unmap scales, out sizes), over a mesh a
-        list of them, one a device in batch order.  Waits for the device
+        list of them, one a data row in batch order.  Waits for the device
         to finish unless ``block=False``, which lets a caller pipeline
         batches (``start_pull`` then ``to_instances``)."""
         with host_stage(self.stages, "stage_batch"):
@@ -313,17 +330,20 @@ class Predictor:
                 out = [r.result() + (unmap[0][s], unmap[1][s])
                        for r, s in zip(runs, shards)]
         if block:
-            for dev in set(self.devices):
+            for dev in set(self.mesh.devices.flat if self.mesh is not None
+                           else self.devices):
                 if dev.type == "cuda":
                     torch.cuda.current_stream(dev).synchronize()
         return out
 
     def _run_replica(self, i: int, ops):
-        """``_run`` of replica ``i`` on its device (a mesh's thread)."""
+        """``_run`` of data row ``i``'s replica on its first device (a
+        mesh's thread), over the row's model axis."""
         dev = self.devices[i]
         with (torch.cuda.device(dev) if dev.type == "cuda"
               else contextlib.nullcontext()):
-            return self._run(*ops, model=self.replicas[i])
+            return self._run(*ops, model=self.replicas[i],
+                             model_axis=self.row_axes[i])
 
     def predict_batch(self, images_rgb: Sequence[np.ndarray]) -> List[Instances]:
         """Run a batch and pull results to host Instances; images may have

@@ -34,6 +34,18 @@ bit-identical; rank 0's weights, traces and step are broadcast after every
 load.  The logged losses are the global ones; rank 0 writes the metrics,
 TensorBoard, checkpoints and ``config.json`` while the others wait.  Each
 rank keeps the three CUDA kernels on its own card.
+
+The model axis (``parallel.mesh_shape = (d, m)``, m > 1; a process group
+of d·m ranks, ``parallel/mesh.py::mesh_axes``): the m ranks of a data row
+load the same rows and draw the same numbers, and each runs the trunk on
+its rows of the augmented images (``forward_train(model_axis=...)``).  The
+loss denominators and the logged losses are summed over the data axis
+only, so each image counts once.  The trainable gradients are summed over
+all d·m ranks in one f32 buffer: the trunk's (ResNet and FPN) are each
+rank's share of its row's; the heads' and the RPN's are the whole row's on
+every rank of it, so only the row's first rank adds them (every rank of a
+row holds the same bits afterwards, whatever order the backward
+algorithms summed in).
 """
 
 from __future__ import annotations
@@ -58,7 +70,7 @@ from uwcv_tpu_torch.data.loader import TRAIN_KEYS
 from uwcv_tpu_torch.engine import checkpoint as ckpt
 from uwcv_tpu_torch.engine.lr_schedule import warmup_multistep
 from uwcv_tpu_torch.models.rcnn import MaskRCNN, compute_dtype
-from uwcv_tpu_torch.parallel.mesh import Mesh, data_axis
+from uwcv_tpu_torch.parallel.mesh import Mesh, mesh_axes
 from uwcv_tpu_torch.utils.device import mark, resolve_device
 from uwcv_tpu_torch.utils.tb_writer import SummaryWriter
 from uwcv_tpu_torch.weights import (
@@ -104,29 +116,37 @@ class Trainer:
 
     Runs on CUDA unless ``device="cpu"`` is passed; without a card the
     default raises.  In an initialized process group of several ranks it
-    trains data-parallel (module docstring); ``mesh`` then places the
-    ranks, rank r on ``mesh.devices[r, 0]`` unless ``device`` is given,
-    and its data axis must equal the rank count."""
+    trains data-parallel, over a model axis of ``parallel.mesh_shape[1]``
+    (module docstring).  ``rank`` and ``ranks`` are this rank's data index
+    and the data axis's size.  ``mesh`` (d, m) replaces the config's
+    model axis and places the ranks, rank r on ``mesh.devices[r // m, r %
+    m]`` unless ``device`` is given; it must hold one device per rank."""
 
     def __init__(self, cfg: Config,
                  device: Optional[Union[str, torch.device]] = None,
                  mesh: Optional[Mesh] = None):
         # own copy: later edits of the caller's cfg do not reach the run
         self.cfg = cfg = copy.deepcopy(cfg)
-        self.world = data_axis()
+        m = (mesh.devices.shape[1] if mesh is not None
+             else max(cfg.parallel.mesh_shape[1], 1))
+        # every process; the data axis (each image counted once); the
+        # model axis of this rank's row
+        self.group, self.world, self.model_axis = mesh_axes(m)
         self.rank, self.ranks = ((self.world.rank, self.world.size)
                                  if self.world else (0, 1))
         if mesh is not None:
-            if mesh.devices.shape[0] != self.ranks:
+            n = self.group.size if self.group else 1
+            if mesh.devices.size != n:
                 raise ValueError(
-                    f"a trainer's mesh puts one rank on each device of its "
-                    f"data axis: {mesh.devices.shape[0]} devices for "
-                    f"{self.ranks} ranks (launch one process per device)")
+                    f"a trainer's mesh puts one rank on each device: "
+                    f"{mesh.devices.size} devices for {n} ranks (launch "
+                    f"one process per device)")
             if device is None:
-                device = mesh.devices[self.rank, 0]
+                device = mesh.devices[divmod(self.group.rank if self.group
+                                             else 0, m)]
         self.mesh = mesh
         self.device = resolve_device(device)
-        self.is_writer = self.rank == 0
+        self.is_writer = self.group is None or self.group.rank == 0
         self.schedule = warmup_multistep(cfg.solver)
         # (name, CUDA event) per step phase, recorded while a caller sets
         # a list here
@@ -147,8 +167,8 @@ class Trainer:
         data-parallel run), make the working copy and reset the
         optimizer."""
         self.model = model.to(device=self.device, dtype=torch.float32)
-        if self.world:
-            self.world.broadcast_(list(self.model.state_dict().values()))
+        if self.group:
+            self.group.broadcast_(list(self.model.state_dict().values()))
         dtype = compute_dtype(self.cfg.model)
         self.compute = self.model
         if dtype != torch.float32:
@@ -166,6 +186,11 @@ class Trainer:
             p.requires_grad_(name in train)
             if name in train:
                 self._trainable.append((name, masters[name], p))
+        # over a model axis only the row's first rank adds the heads'
+        # gradients: each rank of the row holds the whole of them
+        heads_here = self.model_axis is None or self.model_axis.rank == 0
+        self._summed = [heads_here or name.startswith(("backbone.", "fpn."))
+                        for name, _, _ in self._trainable]
         if self.compute is not self.model:
             self.model.requires_grad_(False)
         self.traces = [torch.zeros_like(m) for _, m, _ in self._trainable]
@@ -210,23 +235,35 @@ class Trainer:
 
     # -------- one step --------
 
+    def global_gradients(self) -> Dict[str, torch.Tensor]:
+        """The global batch's f32 gradients of the trainable parameters by
+        name, from the working copy's ``.grad`` (this rank's): in a process
+        group one f32 sum over every rank, in which a model axis's trunk
+        gradients add up and only the row's first rank adds the heads'.
+        Every rank must call it."""
+        names = [n for n, _, _ in self._trainable]
+        masters = [m for _, m, _ in self._trainable]
+        grads = [torch.zeros_like(m) if c.grad is None or not summed
+                 else c.grad.float()
+                 for (_, m, c), summed in zip(self._trainable, self._summed)]
+        if self.group:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            mark(self.marks, "gradient f32 pack")
+            self.group.all_reduce_sum(flat)
+            mark(self.marks, "gradient all-reduce")
+            grads = [part.view_as(m) for part, m in zip(
+                flat.split([m.numel() for m in masters]), masters)]
+        return dict(zip(names, grads))
+
     def _apply_gradients(self) -> None:
         """The optax chain of trainer.py:72-88, over the trainable
         parameters: g += wd·p; g clipped by the global norm; t = g + m·t;
         p += −lr(step)·t."""
         sc = self.cfg.solver
         masters = [m for _, m, _ in self._trainable]
-        grads = [torch.zeros_like(m) if c.grad is None else c.grad.float()
-                 for _, m, c in self._trainable]
-        if self.world:
-            # the ranks' gradients summed in f32, before weight decay and
-            # clipping, which act on the global gradient once
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            mark(self.marks, "gradient f32 pack")
-            self.world.all_reduce_sum(flat)
-            grads = [part.view_as(m) for part, m in zip(
-                flat.split([m.numel() for m in masters]), masters)]
-            mark(self.marks, "gradient all-reduce")
+        # the ranks' gradients summed in f32, before weight decay and
+        # clipping, which act on the global gradient once
+        grads = list(self.global_gradients().values())
         if sc.weight_decay > 0:
             grads = torch._foreach_add(grads,
                                        torch._foreach_mul(masters,
@@ -256,8 +293,8 @@ class Trainer:
         ``forward_train``, the weighted loss sum, backward, the optimizer.
         ``sampler_draws`` (``models.rcnn.sampler_draws``) replace the
         samplers' draws from ``generator``.  → the losses and
-        ``total_loss`` (device scalars; in a data-parallel run this rank's
-        shares, which ``global_metrics`` sums); the working copy's
+        ``total_loss`` (device scalars; in a data-parallel run this data
+        row's shares, which ``global_metrics`` sums); the working copy's
         ``.grad`` keep this rank's gradients until the next step."""
         cfg = self.cfg
         mark(self.marks, "start")
@@ -276,7 +313,7 @@ class Trainer:
         losses = self.compute.forward_train(
             aug["image"], aug["boxes"], batch["classes"], aug["masks"],
             batch["valid"], generator=generator, draws=sampler_draws,
-            world=self.world)
+            world=self.world, model_axis=self.model_axis)
         total = sum(LOSS_WEIGHTS.get(k, 1.0) * v for k, v in losses.items())
         mark(self.marks, "forward")
         total.backward()
@@ -292,7 +329,8 @@ class Trainer:
     def global_metrics(self, metrics: Dict[str, torch.Tensor]
                        ) -> Dict[str, float]:
         """A step's metrics as host floats: in a data-parallel run the sum
-        of the ranks' shares (one all-reduce), i.e. the global batch's."""
+        of the data rows' shares (one all-reduce over the data axis), i.e.
+        the global batch's.  Every rank must call it."""
         if self.world:
             vec = self.world.all_reduce_sum(
                 torch.stack([metrics[k].float() for k in metrics]))
@@ -300,8 +338,8 @@ class Trainer:
         return {k: float(v) for k, v in metrics.items()}
 
     def _barrier(self) -> None:
-        if self.world:
-            self.world.barrier()
+        if self.group:
+            self.group.barrier()
 
     # -------- the loop --------
 
@@ -415,11 +453,11 @@ class Trainer:
                 self.traces = [state["trace"][n].to(self.device)
                                for n, _, _ in self._trainable]
                 self.step = int(state["step"])
-                if self.world:
+                if self.group:
                     # rank 0's weights, traces and step
                     step = torch.tensor([self.step], dtype=torch.float64,
                                         device=self.device)
-                    self.world.broadcast_(
+                    self.group.broadcast_(
                         list(self.model.state_dict().values())
                         + self.traces + [step])
                     self.step = int(step.item())

@@ -273,8 +273,9 @@ def _train_trial(tcfg, dicts, dev: torch.device, seed: int, step_seed: int,
     """A trial's training on ``dev``: a ``Trainer`` from a fresh init
     (``seed``), the dataset staged on the device when it fits, and
     ``max_iter`` steps whose draws come from ``step_generator(step_seed,
-    i)``.  In a process group each rank trains on its share of the global
-    batch.  → the trainer and {setup_s, train_s, first_step_s (the first
+    i)``.  In a process group each rank trains on its data row's share of
+    the global batch (over ``parallel.mesh_shape``'s model axis, its rows
+    of the row's images).  → the trainer and {setup_s, train_s, first_step_s (the first
     step alone, to its end on the device), steps, losses (the last 5
     global total losses), train_span (wall-clock start and end of the
     steps)}."""

@@ -1,7 +1,12 @@
 """Feature Pyramid Network over ResNet C2..C5 (port of
 ``uwcv_tpu/models/fpn.py``): 1x1 laterals, nearest 2× top-down, 3x3 output
 convs, and P6 = P5 subsampled by 2 (Flax ``max_pool`` with a 1×1 window and
-stride 2, fpn.py:47).  NCHW inside."""
+stride 2, fpn.py:47).  NCHW inside.
+
+With a model ``axis`` (``parallel/spatial.py``) it runs on row shards:
+the 3×3 output convs exchange halo rows; the laterals, the nearest 2×
+top-down and P6 are row-local (every interior shard boundary is a
+multiple of 64 image rows)."""
 
 from __future__ import annotations
 
@@ -9,6 +14,8 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
+
+from uwcv_tpu_torch.parallel.spatial import spatial_conv2d
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -25,13 +32,15 @@ class FPN(nn.Module):
             setattr(self, f"output_p{i}",
                     nn.Conv2d(channels, channels, 3, padding=1))
 
-    def forward(self, feats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, feats: Dict[str, torch.Tensor], axis=None
+                ) -> Dict[str, torch.Tensor]:
         lat = {f"c{i}": getattr(self, f"lateral_c{i}")(feats[f"c{i}"])
                for i in range(2, 6)}
         td = {"c5": lat["c5"]}
         for upper, lower in (("c5", "c4"), ("c4", "c3"), ("c3", "c2")):
             td[lower] = lat[lower] + upsample2x_nearest(td[upper])
-        out = {f"p{i}": getattr(self, f"output_p{i}")(td[f"c{i}"])
+        out = {f"p{i}": spatial_conv2d(td[f"c{i}"],
+                                       getattr(self, f"output_p{i}"), axis)
                for i in range(2, 6)}
         out["p6"] = out["p5"][:, :, ::2, ::2]
         return out

@@ -12,6 +12,14 @@ through the NMS kernel.  Its random draws come from a ``torch.Generator``
 through ``sampler_draws``, or from the caller.  In a data-parallel run
 (``world``, ``parallel/mesh.py::DataAxis``) each rank computes its share of
 the global batch's loss; the shares add up to it.
+
+With a model axis (``model_axis``: ``parallel/mesh.py::ModelAxis`` in a
+process group, ``parallel/spatial.py::DeviceRow`` in one process) the
+image's height is split over the axis (``mesh.height_shards``): the trunk
+runs on this process's row shard(s) with halo rows exchanged, and each
+FPN level is gathered whole (``spatial.gather_rows``) before the RPN, the
+anchors (at the full image size), the poolers and the heads, which run
+unchanged on the gathered levels.
 """
 
 from __future__ import annotations
@@ -34,6 +42,12 @@ from uwcv_tpu_torch.ops.matcher import (
     subsample_labels,
 )
 from uwcv_tpu_torch.ops.roi_align import level_canvas, pool_level_canvas
+from uwcv_tpu_torch.parallel.mesh import height_shards
+from uwcv_tpu_torch.parallel.spatial import (
+    gather_rows,
+    level_heights,
+    shard_rows,
+)
 from uwcv_tpu_torch.structures.boxes import encode_deltas
 from uwcv_tpu_torch.utils.device import mark
 
@@ -122,23 +136,37 @@ class MaskRCNN(nn.Module):
                 for n, a in zip(LEVELS, per_level)}
         return self._anchor_cache[key]
 
-    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """images [B,H,W,3] → FPN features {p2..p6} as NCHW tensors
-        (channels-last memory on the GPU)."""
+    def _model_input(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B,h,W,3] RGB → the normalized NCHW trunk input in the
+        compute dtype (channels-last memory on the GPU)."""
         x = _rgb_to_model_format(images.float(), self.cfg).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        x = x.to(compute_dtype(self.cfg))
-        return self.fpn(self.backbone(x))
+        return x.to(compute_dtype(self.cfg))
+
+    def features(self, images: torch.Tensor, model_axis=None
+                 ) -> Dict[str, torch.Tensor]:
+        """images [B,H,W,3] → FPN features {p2..p6} as NCHW tensors
+        (channels-last memory on the GPU).  With ``model_axis`` the trunk
+        runs on this process's rows of the image and the levels are
+        gathered whole (on the row's first device in one process)."""
+        if model_axis is None:
+            return self.fpn(self.backbone(self._model_input(images)))
+        rows = height_shards(images.shape[1], model_axis.size)
+        x = shard_rows(images, model_axis, rows, self._model_input)
+        feats = self.fpn(self.backbone(x, model_axis), model_axis)
+        return {k: gather_rows(v, model_axis, level_heights(rows, STRIDES[k]))
+                for k, v in feats.items()}
 
     @torch.no_grad()
-    def inference(self, images: torch.Tensor):
+    def inference(self, images: torch.Tensor, model_axis=None):
         """images [B,H,W,3] RGB float/uint8 (padded) → (Detections with a
         leading batch dim, mask probabilities [B,D,28,28] of the predicted
-        class, or None)."""
+        class, or None).  ``model_axis``: the trunk on row shards
+        (``features``)."""
         cfg = self.cfg
         b, h, w, _ = images.shape
-        feats = self.features(images)
+        feats = self.features(images, model_axis)
         mark(self.marks, "trunk+fpn")
         obj, deltas = self.rpn_head(feats)
         proposals = generate_proposals(
@@ -184,7 +212,8 @@ class MaskRCNN(nn.Module):
                       gt_valid: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
-                      world=None) -> Dict[str, torch.Tensor]:
+                      world=None, model_axis=None
+                      ) -> Dict[str, torch.Tensor]:
         """Training forward → loss dict (port of rcnn.py:161-325).
 
         images [B,H,W,3] RGB float; gt_boxes [B,N,4]; gt_classes [B,N];
@@ -200,11 +229,17 @@ class MaskRCNN(nn.Module):
         rank takes its rows, and every loss is the rank's numerator over
         the global denominator (the batch, its rois, the summed roi
         weights, all-reduced and detached): the ranks' losses add up to
-        the global batch's, and so do their gradients."""
+        the global batch's, and so do their gradients.
+
+        ``model_axis`` (``parallel/mesh.py::ModelAxis``): the batch's
+        whole images; this rank runs the trunk on its rows of them, and
+        every rank of the axis computes the same losses on the gathered
+        levels.  The trunk's parameter gradients are then this rank's
+        share; every other gradient is the whole one."""
         c = self.cfg
         b, h, w, _ = images.shape
         dev = images.device
-        feats = self.features(images)
+        feats = self.features(images, model_axis)
         obj, deltas = self.rpn_head(feats)
         anchors = self._anchors((h, w), dev)
         anchors_cat = torch.cat([anchors[n] for n in LEVELS])      # [A,4]

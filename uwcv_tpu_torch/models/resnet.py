@@ -5,6 +5,11 @@ which makes the NHWC view at the port's public functions free).  FrozenBN
 is a per-channel affine in the compute dtype; stride sits on the 3×3 conv.
 Module and buffer names follow the Flax param tree, so
 ``weights.params_from_flax`` maps each leaf by name.
+
+With a model ``axis`` (``parallel/spatial.py``) the backbone runs on row
+shards: the stem conv, the stem max-pool and each bottleneck's 3×3 conv
+exchange halo rows; the 1×1 convs, FrozenBN, ReLU and the residual add are
+row-local.  Without one it is the plain module.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from uwcv_tpu_torch.parallel.spatial import spatial_conv2d, spatial_max_pool2d
 
 # 26 is a minimal 1-block-per-stage variant for tests/smoke runs; 50/101 are
 # the production depths
@@ -53,12 +60,12 @@ class Bottleneck(nn.Module):
                                bias=False)
         self.bn3 = FrozenBN(out_channels)
 
-    def forward(self, x):
+    def forward(self, x, axis=None):
         shortcut = x
         if self.use_projection:
             shortcut = self.shortcut_bn(self.shortcut_conv(x))
         y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = F.relu(self.bn2(spatial_conv2d(y, self.conv2, axis)))
         y = self.bn3(self.conv3(y))
         return F.relu(y + shortcut)
 
@@ -83,12 +90,12 @@ class ResNet(nn.Module):
                     use_projection=(b == 0)))
                 in_c = out_c
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
-        x = F.relu(self.stem_bn(self.stem_conv(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+    def forward(self, x, axis=None) -> Dict[str, torch.Tensor]:
+        x = F.relu(self.stem_bn(spatial_conv2d(x, self.stem_conv, axis)))
+        x = spatial_max_pool2d(x, 3, 2, 1, axis)
         feats = {}
         for stage, n_blocks in enumerate(self.blocks):
             for b in range(n_blocks):
-                x = getattr(self, f"res{stage + 2}_block{b}")(x)
+                x = getattr(self, f"res{stage + 2}_block{b}")(x, axis)
             feats[f"c{stage + 2}"] = x
         return feats

@@ -6,25 +6,34 @@ explicit:
 
 - **training** runs one process per device (``torchrun``, or the ``train``
   verb's own workers); ``initialize_multi_host`` joins the process group,
-  ``TrainLoader(process_index, process_count)`` gives each rank its slice
-  of the global batch (rank-major, as ``jax.make_array_from_process_local_data``
-  assembles it), and ``DataAxis`` sums over the ranks: the loss
-  denominators in ``MaskRCNN.forward_train``, the gradients, the logged
-  losses;
+  ``TrainLoader(process_index, process_count)`` gives each data row its
+  slice of the global batch (rank-major, as
+  ``jax.make_array_from_process_local_data`` assembles it), and
+  ``DataAxis`` sums over the rows: the loss denominators in
+  ``MaskRCNN.forward_train``, the gradients, the logged losses;
 - **inference** runs one process over a ``Mesh`` of devices:
-  ``Predictor(mesh=...)`` holds a replica per device and gives each its
-  contiguous slice of the batch (``shard_batch``).
+  ``Predictor(mesh=...)`` holds a replica on the first device of each data
+  row and gives each row its contiguous slice of the batch
+  (``shard_batch``).
+
+The model axis (``spatial_image_sharding``'s height over the model axis)
+splits each image's height over the m devices of its data row
+(``height_shards``): the trunk runs on row shards with halo rows
+exchanged (``parallel/spatial.py``) and the FPN levels are gathered
+before the heads.  In a process group of d·m ranks, rank r sits at data
+index ``r // m`` and model index ``r % m`` (JAX's ``reshape(d, m)``
+order); ``mesh_axes`` gives each rank its ``DataAxis`` and ``ModelAxis``
+over sub-groups of their own.  In one process a row's devices exchange
+halos with copies (``spatial.DeviceRow``).
 
 ``spawn_ranks`` starts the ranks of a group from one driver process (the
 ``train`` verb's workers, an HPO trial over a group of devices) and stops
 them all when one fails or the group outlives its deadline.
-
-The model axis (spatial sharding, ``spatial_image_sharding``) is not
-ported: a mesh with a model axis above 1 raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import hashlib
 import os
@@ -36,6 +45,7 @@ from typing import (
     NamedTuple,
     Optional,
     Sequence,
+    Tuple,
     Union,
 )
 
@@ -96,32 +106,35 @@ def local_rank(cfg: Optional[ParallelConfig] = None) -> int:
 
 
 class DataAxis:
-    """The data axis across the processes of the group: this rank, the
-    rank count, and sums over them.
+    """Sums and broadcasts over the processes of ``group`` (default: the
+    whole process group): this rank's index there, their count, and sums
+    over them.
 
     A rank's share of a global quantity is summed with ``all_reduce_sum``
     (in place, every rank gets the same bits).  The gloo backend sums CUDA
     tensors through a pinned host copy."""
 
-    def __init__(self):
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
-        self.backend = dist.get_backend()
+    def __init__(self, group=None):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.backend = dist.get_backend(group)
+        # broadcasts come from the group's first rank, named globally
+        self._src = 0 if group is None else dist.get_global_rank(group, 0)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         if self.backend == "gloo" and t.is_cuda:
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             host.copy_(t)
-            dist.all_reduce(host)
+            dist.all_reduce(host, group=self.group)
             t.copy_(host)
         else:
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=self.group)
         return t
 
-    def broadcast_(self, tensors: Sequence[torch.Tensor], src: int = 0
-                   ) -> None:
-        """Overwrite ``tensors`` with rank ``src``'s, one flat buffer per
-        dtype."""
+    def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Overwrite ``tensors`` with the group's first rank's, one flat
+        buffer per dtype."""
         groups: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t in tensors:
             groups.setdefault(t.dtype, []).append(t)
@@ -129,17 +142,101 @@ class DataAxis:
             flat = torch.cat([t.reshape(-1) for t in group])
             if self.backend == "gloo" and flat.is_cuda:
                 host = flat.cpu()
-                dist.broadcast(host, src)
+                dist.broadcast(host, self._src, group=self.group)
                 flat.copy_(host)
             else:
-                dist.broadcast(flat, src)
+                dist.broadcast(flat, self._src, group=self.group)
             with torch.no_grad():
                 for t, part in zip(group, flat.split([t.numel()
                                                       for t in group])):
                     t.copy_(part.view_as(t))
 
     def barrier(self) -> None:
-        dist.barrier()
+        dist.barrier(group=self.group)
+
+
+class ModelAxis:
+    """The model axis of this rank's data row: the ``size`` ranks
+    ``ranks`` (global, in model order) of ``group``, of which this is
+    model index ``rank``, holding the row shard ``height_shards`` gives
+    it.  The communicator of ``parallel/spatial.py``'s process-group
+    route: ``swap`` moves halo rows between neighbours with one
+    ``batch_isend_irecv``, ``gather`` all-gathers a level's shards.  The
+    gloo backend moves CUDA tensors through host copies (two ranks sharing
+    one card need gloo: NCCL refuses them)."""
+
+    def __init__(self, group, ranks: Sequence[int]):
+        self.group = group
+        self.ranks = list(ranks)
+        self.rank = self.ranks.index(dist.get_rank())
+        self.size = len(self.ranks)
+        self.local = [self.rank]          # the model indices held here
+        self._staged = dist.get_backend(group) == "gloo"
+        # (name, start, end) CUDA events around each halo swap and level
+        # gather, recorded while a caller sets a list here
+        self.spans: Optional[list] = None
+        # a first collective with every rank of the group, before any
+        # point-to-point call
+        dist.barrier(group=group)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, like: torch.Tensor):
+        if self.spans is None or not like.is_cuda:
+            yield
+            return
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        yield
+        b.record()
+        self.spans.append((name, a, b))
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
+        return t.cpu() if self._staged and t.is_cuda else t
+
+    def _buffer(self, shape, like: torch.Tensor) -> torch.Tensor:
+        dev = "cpu" if self._staged else like.device
+        return torch.empty(shape, dtype=like.dtype, device=dev)
+
+    def swap(self, msgs: Dict[Tuple[int, int], torch.Tensor],
+             want: Dict[Tuple[int, int], Tuple[tuple, torch.Tensor]]
+             ) -> Dict[Tuple[int, int], torch.Tensor]:
+        """Send ``msgs[(this, dst)]`` to model index ``dst``; receive for
+        each ``want[(src, this)] = (shape, like)`` a tensor of ``shape``
+        from ``src``, on ``like``'s device in its dtype.  → the received
+        tensors by (src, this)."""
+        if not (msgs or want):
+            return {}
+        ops, got = [], {}
+        first = (next(iter(msgs.values())) if msgs
+                 else next(iter(want.values()))[1])
+        with self._span("halo", first):
+            for (_, dst), t in msgs.items():
+                ops.append(dist.P2POp(dist.isend, self._out(t),
+                                      self.ranks[dst], self.group))
+            for key, (shape, like) in want.items():
+                got[key] = self._buffer(shape, like)
+                ops.append(dist.P2POp(dist.irecv, got[key],
+                                      self.ranks[key[0]], self.group))
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            return {key: got[key].to(like.device)
+                    for key, (_, like) in want.items()}
+
+    def gather(self, parts: Sequence[torch.Tensor], heights: Sequence[int]
+               ) -> torch.Tensor:
+        """[B, C, heights[j], W] shard j of every rank → the
+        [B, C, sum(heights), W] whole on every rank: one all-gather of the
+        shards padded to the tallest."""
+        (x,) = parts
+        with self._span("gather", x):
+            pad = max(heights) - x.shape[2]
+            send = self._out(torch.nn.functional.pad(x, (0, 0, 0, pad)))
+            bufs = [torch.empty_like(send) for _ in range(self.size)]
+            dist.all_gather(bufs, send, group=self.group)
+            whole = torch.cat([b[:, :, :h] for b, h in zip(bufs, heights)],
+                              2)
+            return whole.to(x.device)
 
 
 def spawn_ranks(fn: Callable, nprocs: int, args: tuple = (),
@@ -189,11 +286,40 @@ def masters_digest(model: torch.nn.Module) -> str:
     return h.hexdigest()
 
 
-def data_axis() -> Optional[DataAxis]:
-    """The process group's data axis, or None in a one-process run."""
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        return DataAxis()
-    return None
+def mesh_axes(model: int = 1) -> Tuple[Optional[DataAxis],
+                                        Optional[DataAxis],
+                                        Optional[ModelAxis]]:
+    """The process group as a (world // ``model``, ``model``) mesh: →
+    (every process, this rank's data axis, its model axis).  Rank r sits
+    at data index ``r // model`` and model index ``r % model``; the data
+    axis is the sub-group of the ranks at this model index, the model axis
+    that of this data row.  Each is None where it holds one rank; all three
+    are None in a one-process run.  Every rank must call this, in the same
+    order: each creates every sub-group (``torch.distributed.new_group``).
+    A model axis above 1 needs a process group whose size it divides."""
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        if model > 1:
+            raise ValueError(f"a model axis of {model} runs one process "
+                             f"per device: join a process group of "
+                             f"{model} or more ranks first")
+        return None, None, None
+    world, r = dist.get_world_size(), dist.get_rank()
+    if model < 1 or world % model:
+        raise ValueError(f"a model axis of {model} does not divide the "
+                         f"{world} ranks of the process group")
+    everyone = DataAxis()
+    if model == 1:
+        return everyone, everyone, None
+    d = world // model
+    rows = [list(range(i * model, (i + 1) * model)) for i in range(d)]
+    row_groups = [dist.new_group(ranks) for ranks in rows]
+    data = None
+    if d > 1:
+        col_groups = [dist.new_group(list(range(j, world, model)))
+                      for j in range(model)]
+        data = DataAxis(col_groups[r % model])
+    return everyone, data, ModelAxis(row_groups[r // model],
+                                     rows[r // model])
 
 
 class Mesh(NamedTuple):
@@ -208,9 +334,12 @@ class Mesh(NamedTuple):
 
 def build_mesh(cfg: Optional[ParallelConfig] = None,
                devices: Optional[Sequence] = None) -> Mesh:
-    """``cfg.mesh_shape`` over ``devices`` (default: every local CUDA
-    device; ``-1`` on the data axis takes them all).  An explicit list is
-    taken as given, repeats included.  A model axis above 1 raises."""
+    """``cfg.mesh_shape`` = (d, m) over ``devices`` (default: every local
+    CUDA device), as JAX builds it: ``d = -1`` takes ``len(devices) //
+    m``, and the first d·m devices fill the mesh row-major, so data row i
+    holds devices ``i·m … i·m + m − 1``.  An explicit list is taken as
+    given, repeats included (``["cuda:0", "cuda:0"]`` puts two entries on
+    one card)."""
     cfg = cfg or ParallelConfig()
     if devices is None:
         resolve_device("cuda")
@@ -219,24 +348,45 @@ def build_mesh(cfg: Optional[ParallelConfig] = None,
     devices = [torch.device(d) for d in devices]
     d, m = cfg.mesh_shape
     m = max(m, 1)
-    if m > 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(cfg.mesh_shape)}: a model axis (spatial "
-            f"sharding, mesh.spatial_image_sharding) is on ROADMAP.md's "
-            f"list of what is not ported")
     if d == -1:
         d = len(devices) // m
     if d < 1 or d * m > len(devices):
         raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} needs "
-                         f"{d * m} devices, {len(devices)} given")
+                         f"{max(d, 1) * m} devices, {len(devices)} given")
     arr = np.empty(d * m, dtype=object)
     arr[:] = devices[:d * m]
     return Mesh(arr.reshape(d, m), (cfg.data_axis, cfg.model_axis))
 
 
+# every interior shard boundary is a multiple of this many image rows, the
+# stride of p6: each FPN level's shard is then rows [a/s, b/s) and
+# p6 = p5[::2] stays local
+SHARD_ROWS = 64
+
+
+def height_shards(height: int, m: int) -> List[Tuple[int, int]]:
+    """The image rows [a_j, b_j) that model index j of ``m`` holds: whole
+    blocks of ``SHARD_ROWS`` rows (the last block partial) dealt out as
+    evenly as they go, the first shards taking one more; the last shard
+    takes the remainder (800 rows over 2: 448 + 352).  Raises where a
+    shard would be empty (``height < 64·(m − 1) + 1``)."""
+    blocks = -(-height // SHARD_ROWS)
+    if m < 1 or blocks < m:
+        raise ValueError(f"an image of {height} rows cannot be split over a "
+                         f"model axis of {m}: each shard needs rows of its "
+                         f"own, so at least {SHARD_ROWS * (m - 1) + 1}")
+    rows, a = [], 0
+    for j in range(m):
+        n = blocks // m + (j < blocks % m)
+        b = min(a + n * SHARD_ROWS, height)
+        rows.append((a, b))
+        a = b
+    return rows
+
+
 def batch_sharding(mesh: Mesh, batch_size: int) -> List[slice]:
-    """The rows of a batch each device of the data axis holds: contiguous
-    slices in device order.  The batch must tile the data axis."""
+    """The rows of a batch each data row of the mesh holds: contiguous
+    slices in row order.  The batch must tile the data axis."""
     d = mesh.devices.shape[0]
     if batch_size % d:
         raise ValueError(f"batch {batch_size} does not tile the data axis "
@@ -256,16 +406,16 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def shard_batch(batch: Dict[str, np.ndarray], mesh: Mesh
                 ) -> List[Dict[str, torch.Tensor]]:
-    """A host batch split over the data axis: device i gets its
-    ``batch_sharding`` rows."""
+    """A host batch split over the data axis: the first device of data
+    row i gets its ``batch_sharding`` rows."""
     n = len(next(iter(batch.values())))
     return [{k: to_device(v[s], torch.device(dev)) for k, v in batch.items()}
             for s, dev in zip(batch_sharding(mesh, n), mesh.devices[:, 0])]
 
 
 def replicate(tree, mesh: Mesh) -> list:
-    """One copy of a module or a tensor tree (dict, list, tuple) on each
-    device of the data axis."""
+    """One copy of a module or a tensor tree (dict, list, tuple) on the
+    first device of each data row."""
     import copy
 
     def put(x, dev):
