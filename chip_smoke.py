@@ -990,15 +990,29 @@ def write_folder_tiffs(image_dir: str, n_images: int) -> str:
     return image_dir
 
 
+# the host stages of the predictor and the folder pipeline, as spans of the
+# recorder (``uwcv_tpu_torch/utils/trace.py``)
+HOST_STAGES = ("stage_batch", "_run", "d2h wait", "to_instances", "decode",
+               "resize_masks_to_original", "rle", "measurement", "csv writes")
+
+
+def host_stages(rec, per: int = 1) -> tuple:
+    """(host ms, calls) by stage of ``HOST_STAGES`` in a recording, the ms
+    over ``per``."""
+    ms, calls = rec.host_ms(), rec.calls()
+    return ({k: v / per for k, v in ms.items() if k in HOST_STAGES},
+            {k: v for k, v in calls.items() if k in HOST_STAGES})
+
+
 def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     """R50-FPN-256 bf16 with seeded weights over ``n_images`` seeded
     1024×1280 16-bit TIFFs through ``run_batch_inference`` with the
     measurements on.  Launch counts are zeroed just before and read just
-    after; host seconds per stage come from ``Predictor.stages``."""
+    after; host ms per stage come from the recorder's spans."""
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
     from uwcv_tpu_torch.engine.predictor import Predictor
-    from uwcv_tpu_torch.utils.device import HostStages
+    from uwcv_tpu_torch.utils.trace import recording
 
     image_dir = write_folder_tiffs(os.path.join(WORK, "folder_tiff"),
                                    n_images)
@@ -1006,12 +1020,13 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     cfg.model.roi_score_thresh_test = 0.0
     cfg.output_dir = os.path.join(WORK, "folder_out")
     pred = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
-    pred.stages = HostStages()
     _zero_launch_counts()
     t0 = time.perf_counter()
-    result = run_batch_inference(cfg, pred, image_dir=image_dir,
-                                 batch_size=batch, with_measurements=True,
-                                 with_plots=False, progress=lambda *_: None)
+    with recording() as rec:
+        result = run_batch_inference(cfg, pred, image_dir=image_dir,
+                                     batch_size=batch, with_measurements=True,
+                                     with_plots=False,
+                                     progress=lambda *_: None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()
@@ -1022,7 +1037,7 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
         raise RuntimeError(f"folder phase launches {launches}, expected "
                            f"{want} (2 a batch × {n_batches})")
     rows = check_rows_decode(result)
-    stages = {k: v * 1e3 for k, v in pred.stages.seconds.items()}
+    stages, stage_calls = host_stages(rec)
     stage_sum = sum(stages.values())
     counts = [int(len(i["scores"])) for i in result["predictions"].values()]
     log(f"  folder full width: {n_images} × 1024×1280 16-bit TIFF, batch "
@@ -1037,7 +1052,7 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     if sum(counts) == 0:
         raise RuntimeError("folder phase: no instance survived")
     return {"img_per_s": n_images / wall, "wall_ms": wall * 1e3,
-            "stages_ms": stages, "stage_calls": dict(pred.stages.calls),
+            "stages_ms": stages, "stage_calls": stage_calls,
             "rows": rows, "launches": launches}
 
 
@@ -1895,7 +1910,7 @@ def serve_artifact(path: str, inputs: str, out: str) -> None:
     from uwcv_tpu_torch.config import Config
     from uwcv_tpu_torch.engine.predictor import Predictor
     from uwcv_tpu_torch.models import rcnn
-    from uwcv_tpu_torch.utils.device import HostStages
+    from uwcv_tpu_torch.utils.trace import recording
 
     def no_model(*_args, **_kwargs):
         raise RuntimeError("the served predictor built MaskRCNN")
@@ -1916,10 +1931,10 @@ def serve_artifact(path: str, inputs: str, out: str) -> None:
     first_s = time.perf_counter() - t0
     partial = served.predict_batch(images[:EXPORT_PARTIAL])
     torch.cuda.synchronize()
-    served.stages = HostStages()
     t0 = time.perf_counter()
-    for _ in range(EXPORT_TIMED):
-        served.predict_batch(images)
+    with recording() as rec:
+        for _ in range(EXPORT_TIMED):
+            served.predict_batch(images)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launch_counts()
@@ -1928,8 +1943,7 @@ def serve_artifact(path: str, inputs: str, out: str) -> None:
              record=json.dumps({
                  "cuda_init_s": cuda_init_s, "load_s": load_s,
                  "first_call_s": first_s,
-                 "stages_ms": {k: v * 1e3 / EXPORT_TIMED
-                               for k, v in served.stages.seconds.items()},
+                 "stages_ms": host_stages(rec, EXPORT_TIMED)[0],
                  "img_per_s": EXPORT_BATCH * EXPORT_TIMED / wall,
                  "batches": 2 + EXPORT_TIMED, "launches": launches,
                  "no_model": served.model is None,
@@ -1965,7 +1979,7 @@ def run_export(dev) -> dict:
     from uwcv_tpu_torch.engine.checkpoint import save_params_npz
     from uwcv_tpu_torch.engine.export import export_predictor
     from uwcv_tpu_torch.engine.predictor import Predictor
-    from uwcv_tpu_torch.utils.device import HostStages
+    from uwcv_tpu_torch.utils.trace import recording
 
     work = os.path.join(WORK, "export")
     shutil.rmtree(work, ignore_errors=True)
@@ -1997,15 +2011,13 @@ def run_export(dev) -> dict:
     live_partial = live.predict_batch(images[:EXPORT_PARTIAL])
     partial = full[:EXPORT_PARTIAL]
     torch.cuda.synchronize()
-    live.stages = HostStages()
     t0 = time.perf_counter()
-    for _ in range(EXPORT_TIMED):
-        live.predict_batch(images)
+    with recording() as rec:
+        for _ in range(EXPORT_TIMED):
+            live.predict_batch(images)
     torch.cuda.synchronize()
     live_rate = EXPORT_BATCH * EXPORT_TIMED / (time.perf_counter() - t0)
-    live_stages = {k: v * 1e3 / EXPORT_TIMED
-                   for k, v in live.stages.seconds.items()}
-    live.stages = None
+    live_stages = host_stages(rec, EXPORT_TIMED)[0]
 
     inputs = os.path.join(work, "inputs.npz")
     np.savez(inputs, images=gray)
@@ -2219,6 +2231,7 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
     from uwcv_tpu_torch.data.superannotate import get_superannotate_dicts
     from uwcv_tpu_torch.engine.trainer import Trainer
     from uwcv_tpu_torch.parallel.mesh import masters_digest
+    from uwcv_tpu_torch.utils.trace import recording
 
     cfg = Config()
     cfg.output_dir = os.path.join(out_dir, "train")
@@ -2251,17 +2264,13 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
     _zero_launch_counts()
     fit(warmup)
     trainer.marks = [] if cuda else None
-    if axis is not None and cuda:
-        axis.spans = []
     sync()
     t0 = time.perf_counter()
-    fit(timed)
+    with recording() as rec:
+        fit(timed)
     sync()
     wall = time.perf_counter() - t0
     marks, trainer.marks = trainer.marks or [], None
-    spans = []
-    if axis is not None:
-        spans, axis.spans = axis.spans or [], None
     launches = _launch_counts()
     n = warmup + timed
     want = {"roi_align_windows": 2 * n, "roi_align_windows_backward": 2 * n,
@@ -2277,9 +2286,10 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
         if prev is not None and name != "start":
             split[name] = split.get(name, 0.0) + prev.elapsed_time(ev) / timed
         prev = ev
-    for name, a, b in spans:
-        split[f"model axis {name}"] = (split.get(f"model axis {name}", 0.0)
-                                       + a.elapsed_time(b) / timed)
+    # the halo swaps' and level gathers' CUDA events (none on the CPU)
+    for name, ms in rec.device_ms().items():
+        if name in ("halo", "gather"):
+            split[f"model axis {name}"] = ms / timed
     rec = {"launches": launches, "steps": n, "timed": timed,
            "global_batch": cfg.solver.ims_per_batch, "wall_s": wall,
            "mesh_shape": [trainer.ranks, axis.size if axis else 1],

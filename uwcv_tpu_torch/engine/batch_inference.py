@@ -26,7 +26,7 @@ from uwcv_tpu_torch.data.rasterize import polygons_to_mask
 from uwcv_tpu_torch.engine.predictor import Predictor
 from uwcv_tpu_torch.measure.reports import MeasurementReport, write_csv
 from uwcv_tpu_torch.measure.rle import rle_encoding
-from uwcv_tpu_torch.utils.device import host_stage
+from uwcv_tpu_torch.utils.trace import span
 
 
 def resize_masks_to_original(inst_np: Dict[str, np.ndarray],
@@ -86,16 +86,14 @@ def run_batch_inference(
     """Folder → predictions → ``<output_dir>/<csv_name>`` RLE CSV (+ the
     measurement artifacts).  Returns {"csv": path, "report":
     MeasurementReport | None, "num_images": int, "predictions": {path:
-    instances_np}}.  When ``predictor.stages`` is set, the host seconds of
-    decode, RLE, measurement and the CSV writes are added to it beside the
-    predictor's own stages."""
+    instances_np}}.  Decode, mask resize, RLE, measurement and the CSV
+    writes are spans (``utils/trace.py``) beside the predictor's own."""
     image_dir = image_dir or cfg.data.inference_dir
     registry = registry or ClassRegistry.load(cfg.data.classes_csv)
     paths = list_inference_images(image_dir, cfg.data.image_ext)
     if not paths:
         raise FileNotFoundError(f"no images found under {image_dir}")
     os.makedirs(cfg.output_dir, exist_ok=True)
-    stages = predictor.stages
 
     report = MeasurementReport(registry, cfg.measure, cfg.output_dir)
     rows: List[Tuple[str, str]] = []
@@ -105,7 +103,7 @@ def run_batch_inference(
         for path, img, inst in zip(chunk, images,
                                    predictor.to_instances(pulled)):
             inst_np = inst.to_numpy()
-            with host_stage(stages, "resize_masks_to_original"):
+            with span("resize_masks_to_original"):
                 inst_np = resize_masks_to_original(inst_np, img.shape[:2])
             if cfg.postprocess.use_class_filters:
                 inst_np = apply_class_filters(
@@ -116,18 +114,18 @@ def run_batch_inference(
             masks = inst_np.get("masks")
             n = 0 if masks is None else len(masks)
             # one CSV row per instance mask (nn_inference.py:330-332)
-            with host_stage(stages, "rle"):
+            with span("rle"):
                 for i in range(n):
                     rle = rle_encoding(masks[i])
                     if rle:
                         rows.append((name, " ".join(str(v) for v in rle)))
             if with_measurements:
-                with host_stage(stages, "measurement"):
+                with span("measurement"):
                     report.add_image(inst_np)
             progress(f"{name}: {n} instances")
 
     def decode(chunk):
-        with host_stage(stages, "decode"):
+        with span("decode"):
             return [load_image_rgb(p) for p in chunk]
 
     # Pipeline: a worker thread decodes batch i+1 while batch i runs; batch
@@ -156,7 +154,7 @@ def run_batch_inference(
         consume(*pending)
 
     csv_path = os.path.join(cfg.output_dir, csv_name)
-    with host_stage(stages, "csv writes"):
+    with span("csv writes"):
         write_csv(csv_path, ["ImageId", "EncodedPixels"], rows)
 
     out: Dict[str, object] = {
@@ -166,7 +164,7 @@ def run_batch_inference(
         "report": None,
     }
     if with_measurements:
-        with host_stage(stages, "csv writes"):
+        with span("csv writes"):
             report.write_shape_descriptor_csv()
             report.write_results_csvs()
         if with_plots:

@@ -45,12 +45,8 @@ from uwcv_tpu_torch.parallel.mesh import (
 )
 from uwcv_tpu_torch.parallel.spatial import DeviceRow
 from uwcv_tpu_torch.structures.instances import Instances
-from uwcv_tpu_torch.utils.device import (
-    HostStages,
-    host_stage,
-    mark,
-    resolve_device,
-)
+from uwcv_tpu_torch.utils.device import resolve_device
+from uwcv_tpu_torch.utils.trace import mark, span
 from uwcv_tpu_torch.utils.image import (
     bucket_up,
     device_resize,
@@ -122,7 +118,15 @@ def device_program(model: MaskRCNN, cfg: Config, images: torch.Tensor,
     dets, mask_probs = model.inference(resized, model_axis)
     if mask_probs is None:   # box-only config (mask_on=False)
         return dets, None, dets.valid
+    with span("mask tail"):
+        return _mask_tail(model, cfg, dets, mask_probs, inside, (mch, mcw))
 
+
+def _mask_tail(model: MaskRCNN, cfg: Config, dets, mask_probs: torch.Tensor,
+               inside: torch.Tensor, canvas):
+    """``device_program``'s tail from the head's mask probabilities: the
+    cleanup, paste, overlap claim, min-pixel filter and bit-pack."""
+    mch, mcw = canvas
     pp = cfg.postprocess
     cleaned, single = clean_head_masks(
         mask_probs, 0.5, do_fill_holes=pp.fill_holes,
@@ -178,8 +182,6 @@ class Predictor:
             raise ValueError(
                 f"input.canvas_bucket must be a positive multiple of "
                 f"size_divisibility={cfg.input.size_divisibility}, got {bkt}")
-        # host seconds per stage, collected only when a caller sets it
-        self.stages: Optional[HostStages] = None
         self.mesh = mesh
         self.devices = ([resolve_device(d) for d in mesh.devices[:, 0]]
                         if mesh is not None else [resolve_device(device)])
@@ -223,7 +225,6 @@ class Predictor:
 
         self = cls.__new__(cls)
         self.cfg = cfg
-        self.stages = None
         self.mesh = None
         self.device = resolve_device(device)
         self.devices = [self.device]
@@ -246,13 +247,15 @@ class Predictor:
         packed masks [B,D,H,W/8] uint8 | None, keep [B,D] bool).  The host
         knows the scales, so it picks the unit-scale fast path itself.
         ``model``: the replica to run (default the first); ``model_axis``:
-        its row's ``DeviceRow``, if any."""
-        return device_program(
-            model or self.model, self.cfg, images,
-            torch.as_tensor(scales, dtype=torch.float32), out_sizes,
-            model_canvas or (self.pad_h, self.pad_w),
-            unit_scale=bool(np.all(np.asarray(scales) == 1.0)),
-            model_axis=model_axis)
+        its row's ``DeviceRow``, if any.  A ``predict`` span
+        (``utils/trace.py``)."""
+        with span("predict"):
+            return device_program(
+                model or self.model, self.cfg, images,
+                torch.as_tensor(scales, dtype=torch.float32), out_sizes,
+                model_canvas or (self.pad_h, self.pad_w),
+                unit_scale=bool(np.all(np.asarray(scales) == 1.0)),
+                model_axis=model_axis)
 
     # -------- host API --------
 
@@ -318,9 +321,9 @@ class Predictor:
         list of them, one a data row in batch order.  Waits for the device
         to finish unless ``block=False``, which lets a caller pipeline
         batches (``start_pull`` then ``to_instances``)."""
-        with host_stage(self.stages, "stage_batch"):
+        with span("stage_batch"):
             device_ops, unmap = self.stage_batch(images_rgb)
-        with host_stage(self.stages, "_run"):
+        with span("_run"):
             if self.mesh is None:
                 out = self._run(*device_ops) + unmap
             else:
@@ -388,9 +391,9 @@ class Predictor:
         if not isinstance(out, PulledBatch):
             out = self.start_pull(out)
         if out.ready is not None:
-            with host_stage(self.stages, "d2h wait"):
+            with span("d2h wait"):
                 out.ready.synchronize()
-        with host_stage(self.stages, "to_instances"):
+        with span("to_instances"):
             return self._instances(out)
 
     def _instances(self, out: PulledBatch) -> List[Instances]:

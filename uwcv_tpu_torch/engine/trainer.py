@@ -71,8 +71,9 @@ from uwcv_tpu_torch.engine import checkpoint as ckpt
 from uwcv_tpu_torch.engine.lr_schedule import warmup_multistep
 from uwcv_tpu_torch.models.rcnn import MaskRCNN, compute_dtype
 from uwcv_tpu_torch.parallel.mesh import Mesh, mesh_axes
-from uwcv_tpu_torch.utils.device import mark, resolve_device
+from uwcv_tpu_torch.utils.device import resolve_device
 from uwcv_tpu_torch.utils.tb_writer import SummaryWriter
+from uwcv_tpu_torch.utils.trace import mark, span
 from uwcv_tpu_torch.weights import (
     flax_leaf_names,
     params_from_flax,
@@ -295,28 +296,41 @@ class Trainer:
         samplers' draws from ``generator``.  → the losses and
         ``total_loss`` (device scalars; in a data-parallel run this data
         row's shares, which ``global_metrics`` sums); the working copy's
-        ``.grad`` keep this rank's gradients until the next step."""
+        ``.grad`` keep this rank's gradients until the next step.  Spans
+        (``utils/trace.py``): ``train_step``; inside it ``forward`` (the
+        stretch of the ``forward`` mark, with ``augment`` in it) and
+        ``backward``."""
+        with span("train_step"):
+            return self._train_step(batch, generator, sampler_draws)
+
+    def _train_step(self, batch, generator, sampler_draws):
         cfg = self.cfg
         mark(self.marks, "start")
-        masks = unpack_bitmasks(batch["masks_packed"], cfg.input.train_size[1])
-        # draws for the global batch, in a one-process run's order; this
-        # rank keeps its rows
-        b, r = batch["image"].shape[0], self.rank
-        draws = augment_draws(b * self.ranks, cfg.input, generator,
-                              self.device)
-        aug = augment_batch({"image": batch["image"].float(),
-                             "boxes": batch["boxes"], "masks": masks},
-                            cfg.input, draws={k: v[r * b:(r + 1) * b]
-                                              for k, v in draws.items()})
-        for _, _, c in self._trainable:
-            c.grad = None
-        losses = self.compute.forward_train(
-            aug["image"], aug["boxes"], batch["classes"], aug["masks"],
-            batch["valid"], generator=generator, draws=sampler_draws,
-            world=self.world, model_axis=self.model_axis)
-        total = sum(LOSS_WEIGHTS.get(k, 1.0) * v for k, v in losses.items())
+        with span("forward"):
+            with span("augment", device=self.device):
+                masks = unpack_bitmasks(batch["masks_packed"],
+                                        cfg.input.train_size[1])
+                # draws for the global batch, in a one-process run's
+                # order; this rank keeps its rows
+                b, r = batch["image"].shape[0], self.rank
+                draws = augment_draws(b * self.ranks, cfg.input, generator,
+                                      self.device)
+                aug = augment_batch(
+                    {"image": batch["image"].float(),
+                     "boxes": batch["boxes"], "masks": masks},
+                    cfg.input, draws={k: v[r * b:(r + 1) * b]
+                                      for k, v in draws.items()})
+            for _, _, c in self._trainable:
+                c.grad = None
+            losses = self.compute.forward_train(
+                aug["image"], aug["boxes"], batch["classes"], aug["masks"],
+                batch["valid"], generator=generator, draws=sampler_draws,
+                world=self.world, model_axis=self.model_axis)
+            total = sum(LOSS_WEIGHTS.get(k, 1.0) * v
+                        for k, v in losses.items())
         mark(self.marks, "forward")
-        total.backward()
+        with span("backward"):
+            total.backward()
         mark(self.marks, "backward")
         with torch.no_grad():
             self._apply_gradients()

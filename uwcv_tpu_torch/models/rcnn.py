@@ -49,7 +49,7 @@ from uwcv_tpu_torch.parallel.spatial import (
     shard_rows,
 )
 from uwcv_tpu_torch.structures.boxes import encode_deltas
-from uwcv_tpu_torch.utils.device import mark
+from uwcv_tpu_torch.utils.trace import mark
 
 STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64}
 

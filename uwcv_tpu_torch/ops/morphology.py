@@ -28,6 +28,8 @@ import torch.nn.functional as F
 # public as torch.while_loop on recent releases only
 from torch._higher_order_ops.while_loop import while_loop
 
+from uwcv_tpu_torch.utils.trace import count, span
+
 
 def _max_pool(x: torch.Tensor, window: Tuple[int, int]) -> torch.Tensor:
     """Windowed max over the last two dims of a float [..., H, W] stack,
@@ -67,15 +69,26 @@ def close_open_smooth(mask: torch.Tensor) -> torch.Tensor:
     return erode(dilate(mask))
 
 
-def _loop(cond_fn, body_fn, carry):
+def _loop(passes: str, cond_fn, body_fn, carry):
     """``while_loop(cond_fn, body_fn, carry)``.  Eagerly it runs as a Python
     loop: torch's eager ``while_loop`` would first compile the body with
-    dynamo, and again for each new shape."""
+    dynamo, and again for each new shape.  There each pass adds one to the
+    counter ``passes``, and each host read of the condition is a ``host
+    sync`` span (``utils/trace.py``)."""
     if torch.compiler.is_exporting():
         return while_loop(cond_fn, body_fn, carry)
-    while cond_fn(*carry):
+    while _host_read(cond_fn(*carry)):
+        count(passes)
         carry = body_fn(*carry)
     return carry
+
+
+def _host_read(flag: torch.Tensor) -> bool:
+    """The loop's condition on the host: waits for the device to get there.
+    Its span is not a profiler annotation, which would cost as much as the
+    read."""
+    with span("host sync", annotate=False):
+        return bool(flag)
 
 
 def _changed(state, changed):
@@ -103,7 +116,8 @@ def fill_holes(mask: torch.Tensor) -> torch.Tensor:
         new = dilate(flood, connectivity=1) & inv
         return new, (new != flood).any()
 
-    flood, _ = _loop(_changed, body, (border & inv, _true(mask)))
+    flood, _ = _loop("flood passes.fill_holes", _changed, body,
+                     (border & inv, _true(mask)))
     return mask | (~flood & inv)
 
 
@@ -123,7 +137,8 @@ def connected_components(mask: torch.Tensor) -> torch.Tensor:
         new = torch.where(mask, torch.minimum(labels, prop), labels)
         return new, (new != labels).any()
 
-    labels, _ = _loop(_changed, body, (labels, _true(mask)))
+    labels, _ = _loop("flood passes.components", _changed, body,
+                      (labels, _true(mask)))
     return torch.where(mask, labels, torch.zeros_like(labels)).to(torch.int64)
 
 

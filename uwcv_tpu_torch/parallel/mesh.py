@@ -33,7 +33,6 @@ them all when one fails or the group outlives its deadline.
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import hashlib
 import os
@@ -55,6 +54,7 @@ import torch.distributed as dist
 
 from uwcv_tpu_torch.config import ParallelConfig
 from uwcv_tpu_torch.utils.device import resolve_device
+from uwcv_tpu_torch.utils.trace import span
 
 
 def initialize_multi_host(cfg: Optional[ParallelConfig] = None,
@@ -163,7 +163,8 @@ class ModelAxis:
     route: ``swap`` moves halo rows between neighbours with one
     ``batch_isend_irecv``, ``gather`` all-gathers a level's shards.  The
     gloo backend moves CUDA tensors through host copies (two ranks sharing
-    one card need gloo: NCCL refuses them)."""
+    one card need gloo: NCCL refuses them).  Each swap and gather is a
+    span (``halo``, ``gather``; ``utils/trace.py``)."""
 
     def __init__(self, group, ranks: Sequence[int]):
         self.group = group
@@ -172,23 +173,9 @@ class ModelAxis:
         self.size = len(self.ranks)
         self.local = [self.rank]          # the model indices held here
         self._staged = dist.get_backend(group) == "gloo"
-        # (name, start, end) CUDA events around each halo swap and level
-        # gather, recorded while a caller sets a list here
-        self.spans: Optional[list] = None
         # a first collective with every rank of the group, before any
         # point-to-point call
         dist.barrier(group=group)
-
-    @contextlib.contextmanager
-    def _span(self, name: str, like: torch.Tensor):
-        if self.spans is None or not like.is_cuda:
-            yield
-            return
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        yield
-        b.record()
-        self.spans.append((name, a, b))
 
     def _out(self, t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
@@ -210,7 +197,7 @@ class ModelAxis:
         ops, got = [], {}
         first = (next(iter(msgs.values())) if msgs
                  else next(iter(want.values()))[1])
-        with self._span("halo", first):
+        with span("halo", device=first):
             for (_, dst), t in msgs.items():
                 ops.append(dist.P2POp(dist.isend, self._out(t),
                                       self.ranks[dst], self.group))
@@ -229,7 +216,7 @@ class ModelAxis:
         [B, C, sum(heights), W] whole on every rank: one all-gather of the
         shards padded to the tallest."""
         (x,) = parts
-        with self._span("gather", x):
+        with span("gather", device=x):
             pad = max(heights) - x.shape[2]
             send = self._out(torch.nn.functional.pad(x, (0, 0, 0, pad)))
             bufs = [torch.empty_like(send) for _ in range(self.size)]
