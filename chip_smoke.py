@@ -19,22 +19,27 @@ Phases (any failure raises and exits non-zero):
    rounding elementwise), each call into a NaN-filled allocator block and
    repeated bit-identically (rois at the border, 64 copies of one roi,
    R = 0, and a timed R = 2·512) and NMS at the training RPN's 10 × 2000;
+   the mask tail's op ``paste_claim_pack`` (``csrc/mask_tail.cu``) at the
+   resident-predict cell's shapes (B 8, D 50, 832×1024) bit-identical to
+   its plain chain, f32 and bf16 paste, with and without overlap removal,
+   the f32 case with overlap removal timed beside the chain and its byte
+   bound;
 3. gate golden: the committed R26/FPN-64 gate checkpoint through
    ``Predictor.predict_batch`` in f32 (TF32 off) against the JAX package's
    outputs committed in ``tests/data/torch_port_gate_golden.npz``;
 4. full width: R50-FPN-256 at the default config in bf16 with seeded
    weights, a batch of 8 grayscale 1024×1280 images, 2 warm-up and 5 timed
    batches; the kernels' launch counts are zeroed just before and read just
-   after, and must show both kernels on the path;
+   after, and must show RoIAlign, NMS and the mask tail on the path;
 5. folder: the same model through ``run_batch_inference`` over 16 seeded
-   1024×1280 16-bit TIFFs (written here), batch 8, measurements on; both
-   kernels twice a batch (counts zeroed just before), every RLE row decodes
-   to its instance's mask; img/s and the host-stage split;
+   1024×1280 16-bit TIFFs (written here), batch 8, measurements on;
+   RoIAlign and NMS twice a batch and the mask tail once (counts zeroed
+   just before), every RLE row decodes to its instance's mask; img/s and
+   the host-stage split;
 6. folder golden: the gate checkpoint in f32 over the committed gate PNGs
    (``tests/data/gate_split``) through ``run_batch_inference`` against the
    JAX package's committed CSVs (ImageIds equal, row mask IoU ≥ 0.99,
-   descriptor medians within 1%), and with ``paste_chunk=10`` bit-equal to
-   the unfused tail;
+   descriptor medians within 1%);
 7. eval: ``evaluate_split`` over that split, segm and bbox AP within 0.005
    of the JAX package's committed values and segm AP ≥ 0.8 × the
    checkpoint's recorded one;
@@ -61,8 +66,8 @@ Phases (any failure raises and exits non-zero):
    count is printed against the tree's, a missed leaf is named); the
    imported params written to an ``.npz`` and read by ``load_predictor``
    give outputs bit-identical to the ``.pth`` predictor's on a batch of 8
-   gray 1024×1280 images; both kernels twice a batch (counts zeroed just
-   before);
+   gray 1024×1280 images; both kernels twice a batch and the mask tail once
+   (counts zeroed just before);
 11. hpo: ``synth`` writes 8 train and 4 test images at 1024×1280, then
    ``run_reference_hpo`` at the default config (R50-FPN-256, bf16 compute,
    f32 masters, 800×800, batch 2), 3 trials of 20 steps (the CLI's default
@@ -81,7 +86,8 @@ Phases (any failure raises and exits non-zero):
    equal the live predictor's (valid, classes and packed masks
    equal; boxes within rtol 1e-5 / atol 1e-4, scores rtol 1e-5 / atol
    1e-5); launch counts zeroed in the child just before its batches show
-   both kernels twice a batch from inside the loaded program; export
+   both kernels twice a batch and the mask tail once from inside the
+   loaded program; export
    seconds, artifact MB, load and first-call seconds, the exported and
    the live predictor's img/s; then the ``export`` verb at batch 4 (the
    staged canvas as the pad canvas) and ``serve --artifact ... --once``
@@ -110,7 +116,8 @@ Phases (any failure raises and exits non-zero):
    cuda:0]`` (one card) or of every card: a batch of 8 equal to the
    single-device predictor on each device's slice, then
    ``run_batch_inference`` over 16 16-bit TIFFs at batch 5, each chunk
-   padded to the mesh; B1 and B2 2 a batch on each device;
+   padded to the mesh; B1 and B2 2 a batch and the mask tail 1 on each
+   device;
 16. sp golden: the train golden of phase 8 over a (1, 2) mesh (the
    model axis): two gloo ranks on ``cuda:0`` and, with two or more cards,
    two NCCL ranks on ``cuda:0`` and ``cuda:1``; each rank runs the trunk on
@@ -129,7 +136,7 @@ Phases (any failure raises and exits non-zero):
    boxes ≤ 1e-2 px, scores ≤ 1e-4, mask IoU ≥ 0.99); then one seeded
    4096×5120 micrograph at the default config (bf16, the test size raised
    to the image) over (1, 1) and, with two or more cards, (1, cards):
-   batch ms and peak memory a card; B1 and B2 2 a batch;
+   batch ms and peak memory a card; B1 and B2 2 a batch, the mask tail 1;
 19. hpo groups: ``run_reference_hpo`` over groups of two devices, each
    trial in two spawned ranks of a process group of its own, scored on
    the driver: one trial at the default config over ``[cuda:0, cuda:0]``
@@ -519,6 +526,94 @@ def check_nms(dev):
             }, launches
 
 
+def mask_tail_inputs(g, b, d, h, w, m=28):
+    """Inputs of ``paste_claim_pack`` from a ``torch.Generator``: cleaned
+    head masks (blobs with specks, so the masks have edges inside), boxes
+    of 0.3–300 px over and beyond the canvas, one wholly off it and one
+    under a pixel, scores with ties, a second image with no kept
+    detection, extents smaller than the canvas but the third image's."""
+    yy, xx = torch.meshgrid(torch.arange(m), torch.arange(m), indexing="ij")
+    c = torch.rand(b, d, 2, generator=g) * m
+    r = torch.rand(b, d, generator=g) * m / 2 + 2
+    masks = ((yy - c[..., :1, None]) ** 2 + (xx - c[..., 1:, None]) ** 2
+             < r[..., None, None] ** 2)
+    masks ^= torch.rand(b, d, m, m, generator=g) < 0.05
+    ctr = (torch.rand(b, d, 2, generator=g) * torch.tensor([w + 40, h + 40])
+           - 20)
+    wh = torch.rand(b, d, 2, generator=g) * 300 + 0.3
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    boxes[0, 0] = torch.tensor([-90.0, -60.0, -8.0, -2.0])
+    boxes[0, 1] = torch.tensor([40.2, 30.7, 40.6, 31.1])
+    keep = torch.rand(b, d, generator=g) > 0.2
+    keep[min(1, b - 1)] = False
+    scores = (torch.rand(b, d, generator=g) * 8).floor() / 8
+    out_sizes = torch.stack([torch.randint(h // 2, h + 1, (b,), generator=g),
+                             torch.randint(w // 2, w + 1, (b,), generator=g)],
+                            -1).int()
+    out_sizes[min(2, b - 1)] = torch.tensor([h, w])
+    return masks, boxes, keep, scores, out_sizes
+
+
+def check_mask_tail(dev) -> dict:
+    """``paste_claim_pack`` at the resident-predict cell's shapes (B 8,
+    D 50, 832×1024, min 2 pixels) against its plain chain on the card,
+    bit for bit, for f32 and bf16 paste with and without overlap removal;
+    the main path's case (f32, overlap removal) timed beside the chain,
+    split by kernel, and held against its byte bound."""
+    from uwcv_tpu_torch.ops.mask_paste import (
+        paste_claim_pack,
+        paste_claim_pack_reference,
+    )
+
+    b, d, h, w, m = 8, 50, 832, 1024, 28
+    g = torch.Generator().manual_seed(7)
+    masks, boxes, keep, scores, out_sizes = (
+        t.to(dev) for t in mask_tail_inputs(g, b, d, h, w, m))
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for overlaps in (True, False):
+            args = (masks, boxes, keep, scores, out_sizes)
+            got = paste_claim_pack(*args, (h, w), min_pixels=2,
+                                   do_remove_overlaps=overlaps, dtype=dtype)
+            want = paste_claim_pack_reference(*args, h, w, 2, overlaps,
+                                              dtype)
+            torch.cuda.synchronize()
+            bits = int((got[0] != want[0]).sum().item())
+            keeps = int((got[1] != want[1]).sum().item())
+            cases.append({"dtype": str(dtype).split(".")[-1],
+                          "remove_overlaps": overlaps, "bytes_differing": bits,
+                          "keep_differing": keeps,
+                          "kept": int(want[1].sum().item())})
+            if bits or keeps:
+                raise RuntimeError(f"paste_claim_pack differs from its chain: "
+                                   f"{cases[-1]}")
+    log(f"  paste_claim_pack: {len(cases)} cases bit-identical to the chain "
+        f"at B {b}, D {d}, {h}×{w}: {cases}")
+    run = lambda: paste_claim_pack(masks, boxes, keep, scores, out_sizes,
+                                   (h, w), min_pixels=2)
+    plain = lambda: paste_claim_pack_reference(
+        masks, boxes, keep, scores, out_sizes, h, w, 2, True, torch.float32)
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain, calls=3, groups=3, warmup=1)
+    # least bytes: the packed output written, masks, boxes, keep and
+    # scores read once; the design adds the int16 owner map, written and
+    # read back inside the boxes
+    least = b * d * (h * w // 8 + m * m + 16 + 1 + 4) + b * 8
+    owner = 2 * b * h * w
+    b_ms, b_by = bound(least, 0.0, torch.float32)
+    split = device_split(run)
+    log(f"    {ms:.4f} ms, plain chain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}: {least / 1e6:.1f} MB; with the owner map written and "
+        f"read once {(least + 2 * owner) / 1e6:.1f} MB, "
+        f"{(least + 2 * owner) / HBM_BYTES_PER_S * 1e3:.6f} ms); device "
+        f"split {split}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": least,
+            "owner_map_bytes": owner, "device_split_ms": split,
+            "cases": cases, "shape": {"B": b, "D": d, "H": h, "W": w,
+                                      "M": m, "dtype": "float32"}}
+
+
 BWD_TILE = 8     # side of csrc/roi_align_bwd.cu's output tiles (kTile)
 
 
@@ -890,8 +985,7 @@ def _gate_folder_cfg(output_dir: str):
 def check_folder_golden(dev) -> dict:
     """The gate checkpoint in f32 (TF32 off) over the committed gate PNGs
     through ``run_batch_inference``, against the JAX package's committed
-    CSVs; then again with ``postprocess.paste_chunk = 10``, whose masks
-    must equal the unfused run's bit for bit."""
+    CSVs."""
     from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
     from uwcv_tpu_torch.engine.predictor import Predictor
     from uwcv_tpu_torch.weights import load_npz
@@ -899,29 +993,20 @@ def check_folder_golden(dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     params = load_npz(GATE_CKPT)
-    image_dir = os.path.join(GATE_SPLIT, "Test")
-    runs = {}
-    for chunk in (0, 10):
-        cfg = _gate_folder_cfg(os.path.join(WORK, f"gate_folder_{chunk}"))
-        cfg.postprocess.paste_chunk = chunk
-        pred = Predictor(cfg, params, device=dev)
-        runs[chunk] = run_batch_inference(cfg, pred, image_dir=image_dir,
-                                          progress=lambda *_: None)
+    cfg = _gate_folder_cfg(os.path.join(WORK, "gate_folder"))
+    pred = Predictor(cfg, params, device=dev)
+    run = run_batch_inference(cfg, pred,
+                              image_dir=os.path.join(GATE_SPLIT, "Test"),
+                              progress=lambda *_: None)
     image_hw = {os.path.basename(p): inst["masks"].shape[1:]
-                for p, inst in runs[0]["predictions"].items()}
-    record = compare_folder_csvs(os.path.dirname(runs[0]["csv"]),
+                for p, inst in run["predictions"].items()}
+    record = compare_folder_csvs(os.path.dirname(run["csv"]),
                                  os.path.join(GATE_SPLIT, "jax"), image_hw)
-    for path, inst in runs[0]["predictions"].items():
-        fused = runs[10]["predictions"][path]
-        if not (np.array_equal(inst["masks"], fused["masks"])
-                and np.array_equal(inst["classes"], fused["classes"])):
-            raise RuntimeError(f"paste_chunk=10 differs from the unfused "
-                               f"tail on {os.path.basename(path)}")
-    record["rows_decode"] = check_rows_decode(runs[0])
+    record["rows_decode"] = check_rows_decode(run)
     log(f"  folder golden: {len(image_hw)} PNGs, {record['rows']} RLE rows "
         f"vs JAX: worst IoU {record['worst_iou']:.4f}, worst descriptor "
         f"median {record['worst_median_rel']:.2e} rel, byte-identical "
-        f"{record['identical']}; paste_chunk=10 masks identical to unfused")
+        f"{record['identical']}")
     torch.backends.cudnn.allow_tf32 = True
     return record
 
@@ -968,13 +1053,15 @@ def _launch_counts() -> dict:
 
 
 def _zero_launch_counts() -> None:
+    from uwcv_tpu_torch.ops.mask_paste import paste_claim_pack
     from uwcv_tpu_torch.ops.nms import nms_greedy
     from uwcv_tpu_torch.ops.roi_align import (
         roi_align_windows,
         roi_align_windows_backward,
     )
 
-    for f in (roi_align_windows, roi_align_windows_backward, nms_greedy):
+    for f in (roi_align_windows, roi_align_windows_backward, nms_greedy,
+              paste_claim_pack):
         f.launches = 0
 
 
@@ -1032,10 +1119,11 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     launches = _launch_counts()
     n_batches = -(-n_images // batch)
     want = {"roi_align_windows": 2 * n_batches,
-            "roi_align_windows_backward": 0, "nms_greedy": 2 * n_batches}
+            "roi_align_windows_backward": 0, "nms_greedy": 2 * n_batches,
+            "paste_claim_pack": n_batches}
     if launches != want:
         raise RuntimeError(f"folder phase launches {launches}, expected "
-                           f"{want} (2 a batch × {n_batches})")
+                           f"{want} (2 and 1 a batch × {n_batches})")
     rows = check_rows_decode(result)
     stages, stage_calls = host_stages(rec)
     stage_sum = sum(stages.values())
@@ -1226,6 +1314,8 @@ def run_full_width(dev):
     if launches["nms_greedy"] != 2 * n_batches:
         raise RuntimeError(f"NMS kernel launches {launches} != 2 per batch "
                            f"(RPN 5·B problems + detection B problems)")
+    if launches["paste_claim_pack"] != n_batches:
+        raise RuntimeError(f"mask tail launches {launches} != 1 per batch")
     if launches["roi_align_windows_backward"]:
         raise RuntimeError(f"inference launched the backward: {launches}")
     for inst in insts + insts_s:
@@ -1371,7 +1461,8 @@ def run_train_full_width(dev) -> dict:
                            + prev.elapsed_time(ev) / TRAIN_TIMED)
         prev = ev
     want = {"roi_align_windows": 2 * n_steps,
-            "roi_align_windows_backward": 2 * n_steps, "nms_greedy": n_steps}
+            "roi_align_windows_backward": 2 * n_steps, "nms_greedy": n_steps,
+            "paste_claim_pack": 0}
     log(f"  train full width R50-FPN-256 bf16 (f32 masters), batch 2 at "
         f"800×800, {len(dicts)} images on the device: {step_ms:.1f} ms/step "
         f"({2e3 / step_ms:.2f} img/s; host clock over {TRAIN_TIMED} steps "
@@ -1513,7 +1604,7 @@ def run_pth_import(dev) -> dict:
         if not (np.isfinite(a.boxes).all() and np.isfinite(a.scores).all()):
             raise RuntimeError("pth import: non-finite detections")
     want = {"roi_align_windows": 4, "roi_align_windows_backward": 0,
-            "nms_greedy": 4}
+            "nms_greedy": 4, "paste_claim_pack": 2}
     valid = [int(i.valid.sum()) for i in outs[0]]
     log(f"  .pth and .npz predictors bit-identical on a batch of 8 gray "
         f"1024×1280 images (valid detections per image {valid}); launches "
@@ -1615,7 +1706,8 @@ def run_hpo(dev) -> dict:
     steps = HPO_TRIALS * HPO_ITERS
     want = {"roi_align_windows": 2 * steps + 2 * eval_batches,
             "roi_align_windows_backward": 2 * steps,
-            "nms_greedy": steps + 2 * eval_batches}
+            "nms_greedy": steps + 2 * eval_batches,
+            "paste_claim_pack": eval_batches}
     log(f"  hpo: {HPO_TRIALS} trials × {HPO_ITERS} steps in {wall:.1f} s "
         f"(synth {synth_s:.1f} s before); {res['eval_predictors']} eval "
         f"predictors built; peak device memory {peak / 2**30:.2f} GiB; "
@@ -1718,7 +1810,8 @@ def _check_group_sweep(name: str, res: dict, driver: dict, steps: int,
     each trial's seconds.  → the launches summed over ranks and driver."""
     total = dict(driver)
     per_rank = {"roi_align_windows": 2 * steps,
-                "roi_align_windows_backward": 2 * steps, "nms_greedy": steps}
+                "roi_align_windows_backward": 2 * steps, "nms_greedy": steps,
+                "paste_claim_pack": 0}
     for t in res["trials"]:
         a = t["user_attrs"]
         if t["state"] != "COMPLETE":
@@ -1753,7 +1846,8 @@ def _check_group_sweep(name: str, res: dict, driver: dict, steps: int,
             + f"; peak per rank "
             f"{[round(r['peak_bytes'] / 2**30, 2) for r in reps]} GiB")
     want = {"roi_align_windows": 2 * eval_batches,
-            "roi_align_windows_backward": 0, "nms_greedy": 2 * eval_batches}
+            "roi_align_windows_backward": 0, "nms_greedy": 2 * eval_batches,
+            "paste_claim_pack": eval_batches}
     if driver != want:
         raise RuntimeError(f"{name}: the driver launched {driver}, expected "
                            f"{want}")
@@ -1828,7 +1922,7 @@ def run_hpo_groups(paths: dict) -> dict:
     t1 = one[0]["trials"][0]
     want_one = {"roi_align_windows": 2 * GROUP_EQ_ITERS,
                 "roi_align_windows_backward": 2 * GROUP_EQ_ITERS,
-                "nms_greedy": GROUP_EQ_ITERS}
+                "nms_greedy": GROUP_EQ_ITERS, "paste_claim_pack": 0}
     if t1["state"] != "COMPLETE" or one[1] != want_one:
         raise RuntimeError(f"hpo groups equality: the one-process trial "
                            f"{t1['state']}, launches {one[1]}")
@@ -1970,8 +2064,8 @@ def run_export(dev) -> dict:
     classes and masks equal; boxes within rtol 1e-5 / atol 1e-4, scores
     rtol 1e-5 / atol 1e-5; the partial batch against the live batch of
     8's first 5, as the artifact runs it padded to 8), and the loaded
-    program must launch both kernels twice a batch.  Then the ``export``
-    verb writes an artifact at
+    program must launch both kernels twice a batch and the mask tail
+    once.  Then the ``export`` verb writes an artifact at
     batch 4 with the staged canvas as the pad canvas, and ``uwcv-torch
     serve --artifact ... --once`` over 4 16-bit TIFFs must write the JSONs
     of a live ``serve --once`` at the same batch and canvas."""
@@ -2057,7 +2151,7 @@ def run_export(dev) -> dict:
     launches = rec["launches"]
     want_launches = {"roi_align_windows": 2 * batches,
                      "roi_align_windows_backward": 0,
-                     "nms_greedy": 2 * batches}
+                     "nms_greedy": 2 * batches, "paste_claim_pack": batches}
     valid = [int(v.sum()) for v in want["full_valid"]]
     log(f"  served in a child process with no model ({child_s:.1f} s in "
         f"all): CUDA context {rec['cuda_init_s']:.2f} s, then load "
@@ -2073,7 +2167,7 @@ def run_export(dev) -> dict:
          for k, v in live_stages.items()}))
     if launches != want_launches:
         raise RuntimeError(f"export launches {launches}, expected "
-                           f"{want_launches} (2 a batch × {batches})")
+                           f"{want_launches} (2 and 1 a batch × {batches})")
     if (not rec["no_model"] or sum(valid) == 0
             or rec["exported_batch"] != EXPORT_BATCH
             or tuple(rec["exported_canvas"]) != canvas):
@@ -2274,7 +2368,7 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
     launches = _launch_counts()
     n = warmup + timed
     want = {"roi_align_windows": 2 * n, "roi_align_windows_backward": 2 * n,
-            "nms_greedy": n}
+            "nms_greedy": n, "paste_claim_pack": 0}
     if launches != want:
         raise RuntimeError(f"dp train rank {rank}: launches "
                            f"{launches}, expected {want}")
@@ -2464,8 +2558,8 @@ def run_mesh_predict(devices: list) -> dict:
     which); then ``run_batch_inference`` over 16 TIFFs as the folder
     phase's (``write_folder_tiffs``) at batch 5 (16 = 3 × 5 + 1: every chunk is
     padded to a multiple of the data axis, the tail most).  Launch counts
-    are zeroed just before each mesh run: B1 and B2 2 a batch on each
-    device."""
+    are zeroed just before each mesh run: B1 and B2 2 a batch and the
+    mask tail 1 on each device."""
     from uwcv_tpu_torch.config import Config, ParallelConfig
     from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
     from uwcv_tpu_torch.engine.predictor import Predictor
@@ -2493,7 +2587,7 @@ def run_mesh_predict(devices: list) -> dict:
     batch_s = time.perf_counter() - t0
     launches = _launch_counts()
     want_l = {"roi_align_windows": 2 * d, "roi_align_windows_backward": 0,
-              "nms_greedy": 2 * d}
+              "nms_greedy": 2 * d, "paste_claim_pack": d}
     if launches != want_l:
         raise RuntimeError(f"mesh predict launches {launches}, expected "
                            f"{want_l}")
@@ -2535,7 +2629,8 @@ def run_mesh_predict(devices: list) -> dict:
     folder_launches = _launch_counts()
     chunks = -(-n_images // MESH_FOLDER_BATCH)
     want_f = {"roi_align_windows": 2 * chunks * d,
-              "roi_align_windows_backward": 0, "nms_greedy": 2 * chunks * d}
+              "roi_align_windows_backward": 0, "nms_greedy": 2 * chunks * d,
+              "paste_claim_pack": chunks * d}
     if folder_launches != want_f:
         raise RuntimeError(f"mesh folder launches {folder_launches}, "
                            f"expected {want_f}")
@@ -2673,14 +2768,14 @@ def run_sp_predict(cards: list) -> dict:
     and, with two or more ``cards``, (1, cards): peak memory a card, batch
     ms, and the mesh's outputs beside the one card's (not gated: bf16 and
     cuDNN's per-shape algorithms round differently).  Launch counts are
-    zeroed just before each mesh batch: B1 and B2 2 a batch on the row's
-    first device."""
+    zeroed just before each mesh batch: B1 and B2 2 a batch and the mask
+    tail 1 on the row's first device."""
     from uwcv_tpu_torch.config import Config, ParallelConfig
     from uwcv_tpu_torch.engine.predictor import Predictor
     from uwcv_tpu_torch.parallel.mesh import build_mesh
 
     want_l = {"roi_align_windows": 2, "roi_align_windows_backward": 0,
-              "nms_greedy": 2}
+              "nms_greedy": 2, "paste_claim_pack": 1}
     launches = {k: 0 for k in want_l}
     rec = {}
     cuda = torch.device(cards[0]).type == "cuda"
@@ -2813,6 +2908,7 @@ def main(argv=None) -> int:
     roi_timed, roi_cases, roi_args = check_roi_align(dev)
     bwd_timed, bwd_cases, bwd_args = check_roi_align_backward(dev)
     nms_rec, nms_calls = check_nms(dev)
+    tail_rec = check_mask_tail(dev)
 
     log("[golden] gate checkpoint vs committed JAX outputs")
     check_gate_golden(dev)
@@ -2933,6 +3029,17 @@ def main(argv=None) -> int:
          "bound_by": bwd_timed["bound_by"], "library_ms": None,
          "shape": {k: bwd_timed[k] for k in ("dtype", "P", "R")},
          "cases": bwd_cases},
+        {"name": "paste_claim_pack", "route": "cuda",
+         "source": "uwcv_tpu_torch/csrc/mask_tail.cu",
+         "replaces": None,
+         "why": "eager PyTorch does not fuse the mask tail's chain as XLA "
+                "did; no [B, D, H, W] stack",
+         **counts("paste_claim_pack"), "max_abs_err": 0.0,
+         "ms": tail_rec["ms"], "plain_ms": tail_rec["plain_ms"],
+         "bound_ms": tail_rec["bound_ms"], "bound_by": tail_rec["bound_by"],
+         "library_ms": None, "shape": tail_rec["shape"],
+         "device_split_ms": tail_rec["device_split_ms"],
+         "cases": tail_rec["cases"]},
     ]
     if against:
         records[0]["against"] = {k: v for k, v in against.items()

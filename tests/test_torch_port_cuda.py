@@ -313,6 +313,81 @@ def test_paste_select_pack_on_card_matches_unfused(dev, chunk):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("overlaps", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [50, 100])
+def test_paste_claim_pack_kernel_matches_chain(dev, d, dtype, overlaps):
+    """The mask-tail kernels against the plain chain on the card, bit for
+    bit, at the benchmark cell's shapes (B 8, 832×1024) with D 50 and
+    Detectron2's 100; each call adds one to the op's launch count."""
+    from chip_smoke import mask_tail_inputs
+    from uwcv_tpu_torch.ops.mask_paste import (
+        paste_claim_pack,
+        paste_claim_pack_reference,
+    )
+
+    g = torch.Generator().manual_seed(d)
+    b, h, w = 8, 832, 1024
+    masks, boxes, keep, scores, out_sizes = (
+        t.to(dev) for t in mask_tail_inputs(g, b, d, h, w))
+    paste_dtype = getattr(torch, dtype)
+    before = paste_claim_pack.launches
+    got_p, got_k = paste_claim_pack(masks, boxes, keep, scores, out_sizes,
+                                    (h, w), min_pixels=2,
+                                    do_remove_overlaps=overlaps,
+                                    dtype=paste_dtype)
+    torch.cuda.synchronize()
+    assert paste_claim_pack.launches == before + 1
+    want_p, want_k = paste_claim_pack_reference(
+        masks, boxes, keep, scores, out_sizes, h, w, 2, overlaps,
+        paste_dtype)
+    torch.testing.assert_close(got_k, want_k, rtol=0, atol=0)
+    torch.testing.assert_close(got_p, want_p, rtol=0, atol=0)
+    assert not got_k[1].any() and got_k.sum() > b
+    # boxes in bfloat16, as a bf16 model's detections may be, and min 0
+    boxes16 = boxes.to(torch.bfloat16)
+    got = paste_claim_pack(masks, boxes16, keep, scores, out_sizes, (h, w),
+                           min_pixels=0, do_remove_overlaps=overlaps,
+                           dtype=paste_dtype)
+    want = paste_claim_pack_reference(masks, boxes16, keep, scores,
+                                      out_sizes, h, w, 0, overlaps,
+                                      paste_dtype)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=0, atol=0)
+
+
+def test_exported_program_calls_the_mask_tail_kernel(dev, tmp_path):
+    """``export_predictor`` → ``load_exported`` on the card: the program
+    calls ``uwcv::paste_claim_pack``, and its packed masks equal
+    ``Predictor._run``'s on the same staged batch."""
+    import numpy as np
+
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.engine.export import export_predictor, load_exported
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.ops.mask_paste import paste_claim_pack
+
+    cfg = _small_cfg()
+    cfg.model.roi_score_thresh_test = 0.0
+    live = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
+    path = export_predictor(live, str(tmp_path / "p.pt2"), batch_size=4)
+    graph = str(torch.export.load(path).graph)
+    assert "paste_claim_pack" in graph
+    run, _, _ = load_exported(path, dev)
+    rng = np.random.default_rng(4)
+    images = [np.repeat(rng.integers(0, 256, (128, 128, 1), dtype=np.uint8),
+                        3, axis=-1) for _ in range(4)]
+    ops, _ = live.stage_batch(images)
+    want = live._run(*ops)
+    before = paste_claim_pack.launches
+    got = run(*ops)
+    torch.cuda.synchronize()
+    assert paste_claim_pack.launches == before + 1
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    assert want[2].any() and want[1].any()
+
+
 def test_start_pull_copies_into_pinned_memory(dev):
     """The folder pipeline's device → host copy: pinned host buffers and an
     event of their own, the same Instances as the synchronous pull."""

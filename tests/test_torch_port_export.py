@@ -8,8 +8,8 @@ outputs are held against the live port predictor (valid, classes and masks
 equal; boxes and scores within ``tests/test_export.py``'s tolerances) and
 against the JAX package's outputs committed in
 ``tests/data/torch_port_gate_golden.npz`` (the tolerances of
-``tests/test_torch_port_predictor.py``).  Both ops of the program are
-checked with ``torch.library.opcheck``.
+``tests/test_torch_port_predictor.py``).  The program's ops are checked
+with ``torch.library.opcheck``.
 """
 
 import json
@@ -298,3 +298,22 @@ def test_nms_op_passes_opcheck():
                           (boxes, valid, 0.5))
     assert torch.equal(torch.ops.uwcv.nms_greedy(boxes, valid, 0.5),
                        nms_greedy_reference(boxes, valid, 0.5))
+
+
+def test_paste_claim_pack_op_passes_opcheck():
+    from uwcv_tpu_torch.ops.mask_paste import paste_claim_pack_reference
+
+    g = torch.Generator().manual_seed(2)
+    masks = torch.rand(2, 6, 28, 28, generator=g) < 0.6
+    ctr = torch.rand(2, 6, 2, generator=g) * 40
+    size = torch.rand(2, 6, 2, generator=g) * 30 + 2
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], -1)
+    keep = torch.rand(2, 6, generator=g) < 0.8
+    scores = torch.rand(2, 6, generator=g)
+    out_sizes = torch.tensor([[40, 48], [32, 40]], dtype=torch.int32)
+    args = (masks, boxes, keep, scores, out_sizes, 40, 48, 2, True,
+            torch.float32)
+    torch.library.opcheck(torch.ops.uwcv.paste_claim_pack.default, args)
+    for got, want in zip(torch.ops.uwcv.paste_claim_pack(*args),
+                         paste_claim_pack_reference(*args)):
+        assert torch.equal(got, want)

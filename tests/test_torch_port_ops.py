@@ -31,7 +31,11 @@ from uwcv_tpu.utils.image import device_resize as j_device_resize
 from uwcv_tpu_torch.data.augment import pack_bitmasks
 from uwcv_tpu_torch.models.anchors import generate_anchors
 from uwcv_tpu_torch.ops import morphology as morph
-from uwcv_tpu_torch.ops.mask_paste import paste_masks, paste_select_pack
+from uwcv_tpu_torch.ops.mask_paste import (
+    paste_claim_pack,
+    paste_masks,
+    paste_select_pack,
+)
 from uwcv_tpu_torch.ops.nms import (
     batched_class_nms_mask,
     nms_greedy,
@@ -688,6 +692,48 @@ def test_paste_select_pack_matches_jax_and_unfused(chunk, overlaps):
         extent=T(np.stack([extent, extent])), **args)
     np.testing.assert_array_equal(got_b[0].numpy(), got_p.numpy())
     np.testing.assert_array_equal(keep_b[0].numpy(), got_k.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("min_pixels", [0, 2, 50])
+@pytest.mark.parametrize("overlaps", [True, False])
+def test_paste_claim_pack_equals_chain_and_paste_select_pack(
+        overlaps, min_pixels, dtype):
+    """The op ``paste_claim_pack`` on the CPU, bit for bit against the
+    unfused chain written out here (paste → extent → overlap claim →
+    min-pixel filter → pack) and against ``paste_select_pack``, for two
+    images whose extents are smaller than the canvas."""
+    rng = np.random.default_rng(21)
+    b, d, m, h, w = 2, 9, 28, 64, 80
+    masks = T(rng.random((b, d, m, m)) < 0.7)
+    x1 = rng.uniform(-10, w - 10, (b, d))
+    y1 = rng.uniform(-10, h - 10, (b, d))
+    boxes = T(np.stack([x1, y1, x1 + rng.uniform(0.5, 50, (b, d)),
+                        y1 + rng.uniform(0.5, 50, (b, d))],
+                       -1).astype(np.float32))
+    keep = T(rng.random((b, d)) > 0.2)
+    scores = T((rng.random((b, d)) * 4).round().astype(np.float32) / 4)
+    out_sizes = torch.tensor([[50, 72], [64, 40]], dtype=torch.int32)
+    got_p, got_k = paste_claim_pack(masks, boxes, keep, scores, out_sizes,
+                                    (h, w), min_pixels=min_pixels,
+                                    do_remove_overlaps=overlaps, dtype=dtype)
+    extent = torch.zeros(b, h, w, dtype=torch.bool)
+    for i, (eh, ew) in enumerate(out_sizes.tolist()):
+        extent[i, :eh, :ew] = True
+    chain = paste_masks(masks.float(), boxes, (h, w), dtype=dtype)
+    chain &= extent[:, None]
+    if overlaps:
+        order = torch.sort(-torch.where(keep, scores, torch.tensor(
+            -np.inf)), dim=-1, stable=True).indices
+        chain = morph.remove_overlaps(chain, order)
+    want_k = keep & (chain.sum(dim=(2, 3)) >= min_pixels)
+    assert torch.equal(got_k, want_k)
+    assert torch.equal(got_p, pack_bitmasks(chain & want_k[..., None, None]))
+    sel_p, sel_k = paste_select_pack(
+        masks.float(), boxes, keep, scores, (h, w), min_pixels=min_pixels,
+        do_remove_overlaps=overlaps, chunk=4, dtype=dtype, extent=extent)
+    assert torch.equal(sel_p, got_p) and torch.equal(sel_k, got_k)
+    assert got_p.any() or min_pixels == 50
 
 
 # ----------------------------------------------------------------- resize

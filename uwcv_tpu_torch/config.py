@@ -371,11 +371,14 @@ class PostprocessConfig:
     smooth: bool = True                 # erosion(dilation(mask)) nn_inference.py:296-297
     remove_overlaps: bool = True
     drop_fragmented: bool = True        # multi-component masks zeroed nn_inference.py:299-306
-    # image-scale tail strategy: 0 = the parallel unfused chain (paste →
-    # remove_overlaps → filter → pack; best measured on this chip, PERF.md
-    # r4); N>0 = the fused scan ops/mask_paste.py::paste_select_pack with
-    # N detections per step (bit-identical output; lower peak HBM — the
-    # choice is a speed/memory knob, bigger canvases may need the scan)
+    # image-scale tail strategy (paste → overlap claim → min-pixel filter →
+    # pack; every choice gives the same bits).  On a card the op
+    # ops/mask_paste.py::paste_claim_pack runs the kernels of
+    # csrc/mask_tail.cu for either value: eager PyTorch does not fuse the
+    # chain's boolean traffic as XLA did, and the kernels hold no
+    # [B, D, H, W] stack.  On the CPU it selects: 0 = the unfused chain
+    # (paste_claim_pack_reference), N>0 = the scan paste_select_pack with N
+    # detections per step (one [B, N, H, W] transient at a time).
     paste_chunk: int = 0
     # dtype of the paste resample matmuls ([H,M]@[M,M]@[M,W] per det).
     # bfloat16 would run them at full MXU rate, but the A/B measured NO win

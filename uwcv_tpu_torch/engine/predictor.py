@@ -31,11 +31,14 @@ import numpy as np
 import torch
 
 from uwcv_tpu_torch.config import Config, model_fields_by_scope
-from uwcv_tpu_torch.data.augment import pack_bitmasks
 from uwcv_tpu_torch.data.loader import load_image_rgb
 from uwcv_tpu_torch.models.rcnn import MaskRCNN, compute_dtype
-from uwcv_tpu_torch.ops.mask_paste import paste_masks, paste_select_pack
-from uwcv_tpu_torch.ops.morphology import clean_head_masks, remove_overlaps
+from uwcv_tpu_torch.ops.mask_paste import (
+    extent_map,
+    paste_claim_pack,
+    paste_select_pack,
+)
+from uwcv_tpu_torch.ops.morphology import clean_head_masks
 from uwcv_tpu_torch.parallel.mesh import (
     Mesh,
     batch_sharding,
@@ -92,11 +95,7 @@ def device_program(model: MaskRCNN, cfg: Config, images: torch.Tensor,
     if images.shape[-1] == 1:
         # grayscale transfer: one channel shipped, re-broadcast to RGB
         images = images.expand(images.shape[:-1] + (3,))
-    dev = images.device
-    yy = torch.arange(mch, device=dev)[None, :, None]
-    xx = torch.arange(mcw, device=dev)[None, None, :]
-    inside = ((yy < out_sizes[:, 0][:, None, None])
-              & (xx < out_sizes[:, 1][:, None, None]))          # [B,H,W]
+    inside = extent_map(out_sizes, canvas)                       # [B,H,W]
 
     def as_is(images, scales, inside):
         return images.float() * inside[..., None]
@@ -119,41 +118,33 @@ def device_program(model: MaskRCNN, cfg: Config, images: torch.Tensor,
     if mask_probs is None:   # box-only config (mask_on=False)
         return dets, None, dets.valid
     with span("mask tail"):
-        return _mask_tail(model, cfg, dets, mask_probs, inside, (mch, mcw))
+        return _mask_tail(model, cfg, dets, mask_probs, out_sizes, canvas)
 
 
 def _mask_tail(model: MaskRCNN, cfg: Config, dets, mask_probs: torch.Tensor,
-               inside: torch.Tensor, canvas):
+               out_sizes: torch.Tensor, canvas):
     """``device_program``'s tail from the head's mask probabilities: the
-    cleanup, paste, overlap claim, min-pixel filter and bit-pack."""
-    mch, mcw = canvas
+    cleanup, then the paste, overlap claim, min-pixel filter and bit-pack
+    (``paste_claim_pack``: the kernels on a card, the chain on the CPU)."""
     pp = cfg.postprocess
     cleaned, single = clean_head_masks(
         mask_probs, 0.5, do_fill_holes=pp.fill_holes,
         do_smooth=pp.smooth, drop_fragmented=pp.drop_fragmented)
     keep = dets.valid & single & (dets.scores >= pp.score_floor)
     paste_dtype = getattr(torch, pp.paste_dtype)
-    if pp.paste_chunk > 0:
-        # the fused tail: one [B, chunk, H, W] transient at a time;
-        # bit-identical to the chain below
+    if pp.paste_chunk > 0 and cleaned.device.type == "cpu":
+        # the chunked tail: one [B, chunk, H, W] transient at a time;
+        # bit-identical to the chain
         packed, keep = paste_select_pack(
-            cleaned.float(), dets.boxes, keep, dets.scores, (mch, mcw),
+            cleaned.float(), dets.boxes, keep, dets.scores, canvas,
             min_pixels=pp.min_mask_pixels,
             do_remove_overlaps=pp.remove_overlaps, chunk=pp.paste_chunk,
-            dtype=paste_dtype, extent=inside)
-        mark(model.marks, "mask tail")
-        return dets, packed, keep
-    masks = paste_masks(cleaned.float(), dets.boxes, (mch, mcw),
-                        dtype=paste_dtype)
-    # pasted pixels beyond the image's true extent are not content
-    masks &= inside[:, None]
-    if pp.remove_overlaps:
-        scores = torch.where(keep, dets.scores,
-                             torch.full_like(dets.scores, -np.inf))
-        order = torch.sort(-scores, dim=-1, stable=True).indices
-        masks = remove_overlaps(masks, order)
-    keep &= masks.sum(dim=(2, 3)) >= pp.min_mask_pixels
-    packed = pack_bitmasks(masks & keep[..., None, None])
+            dtype=paste_dtype, extent=extent_map(out_sizes, canvas))
+    else:
+        packed, keep = paste_claim_pack(
+            cleaned, dets.boxes, keep, dets.scores, out_sizes, canvas,
+            min_pixels=pp.min_mask_pixels,
+            do_remove_overlaps=pp.remove_overlaps, dtype=paste_dtype)
     mark(model.marks, "mask tail")
     return dets, packed, keep
 

@@ -58,6 +58,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # boxes, valid, keep, mask scratch, P, N, threshold, stream
         "uwcv_nms_greedy": (_P, _P, _P, _P, _I, _I, _F, _P),
     },
+    "mask_tail": {
+        # masks, geo, keep, scores, out_sizes, counts and owner scratch,
+        # packed, keep_out, B, D, M, H, W, min_pixels, overlaps, bf16,
+        # stream
+        "uwcv_paste_claim_pack": (_P,) * 9 + (_I,) * 8 + (_P,),
+    },
 }
 # C entry points of each host source: name → (restype, argtypes)
 HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -178,6 +184,7 @@ def count_launch(wrapper) -> None:
 def launch_counts() -> Dict[str, int]:
     """This process's kernel launches so far, by wrapper (the counters are
     per process)."""
+    from uwcv_tpu_torch.ops.mask_paste import paste_claim_pack
     from uwcv_tpu_torch.ops.nms import nms_greedy
     from uwcv_tpu_torch.ops.roi_align import (
         roi_align_windows,
@@ -185,7 +192,8 @@ def launch_counts() -> Dict[str, int]:
     )
 
     return {f.__name__: f.launches for f in (
-        roi_align_windows, roi_align_windows_backward, nms_greedy)}
+        roi_align_windows, roi_align_windows_backward, nms_greedy,
+        paste_claim_pack)}
 
 
 def check(rc: int, what: str) -> None:
