@@ -10,6 +10,7 @@ the repository's conftest:
 import pytest
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
 from uwcv_tpu_torch.ops.nms import (
     NMS_MAX_N,
     nms_greedy,

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
 from uwcv_tpu_torch.config import Config
 from uwcv_tpu_torch.engine.export import META, export_predictor, read_meta
 from uwcv_tpu_torch.engine.predictor import Predictor

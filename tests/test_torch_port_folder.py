@@ -23,6 +23,8 @@ import sys
 import numpy as np
 import pytest
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "uwcv_tpu_torch")
 CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
 from uwcv_tpu.config import Config as JaxConfig
 from uwcv_tpu.models.heads import inference_detections as j_inference_detections
 from uwcv_tpu.models.rcnn import MaskRCNN as JaxMaskRCNN, STRIDES, init_params

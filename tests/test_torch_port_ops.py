@@ -14,6 +14,7 @@ import pytest
 import scipy.ndimage as ndi
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
 from tests.test_ops_morphology_paste import _ring, _snake
 from tests.test_ops_nms_roialign import _ramp_feats, roi_align_oracle
 from uwcv_tpu.data.augment import pack_bitmasks as j_pack

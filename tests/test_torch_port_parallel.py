@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
 from uwcv_tpu.config import Config as JaxConfig, ParallelConfig as JaxPar
 from uwcv_tpu.parallel import mesh as j_mesh
 from uwcv_tpu_torch.config import Config, ParallelConfig

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
 from uwcv_tpu_torch.ops.morphology import connected_components, fill_holes
 from uwcv_tpu_torch.utils import trace
 

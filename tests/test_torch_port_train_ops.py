@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import hang_report, hang_report_module  # noqa: F401
 from uwcv_tpu.config import Config as JaxConfig
 from uwcv_tpu.config import SolverConfig as JaxSolverConfig
 from uwcv_tpu.data import augment as j_aug
