@@ -23,7 +23,14 @@ Phases (any failure raises and exits non-zero):
    resident-predict cell's shapes (B 8, D 50, 832×1024) bit-identical to
    its plain chain, f32 and bf16 paste, with and without overlap removal,
    the f32 case with overlap removal timed beside the chain and its byte
-   bound;
+   bound; the trunk's conv epilogue ``frozen_bn_act``
+   (``csrc/frozen_bn.cu``) on the 49 calls of an R50 forward at that
+   cell's shapes, bit-identical to the chain, timed beside it and its byte
+   bound, and at R101's res4 shapes of the training cell; every later
+   phase's launch counts hold that kernel too (``epilogues``: 49 an R50
+   forward, 100 an R101 one, 10 a training step at ``freeze_at`` 2, once
+   a part on a model axis), and the folder and export phases' recordings
+   show no epilogue on the chain;
 3. gate golden: the committed R26/FPN-64 gate checkpoint through
    ``Predictor.predict_batch`` in f32 (TF32 off) against the JAX package's
    outputs committed in ``tests/data/torch_port_gate_golden.npz``;
@@ -614,6 +621,154 @@ def check_mask_tail(dev) -> dict:
                                       "M": m, "dtype": "float32"}}
 
 
+def trunk_epilogues(depth: int, batch: int, h: int, w: int, dev,
+                    dtype=torch.bfloat16, seed: int = 0) -> list:
+    """The arguments of every ``frozen_bn_act`` call in one forward of a
+    seeded ResNet-``depth`` (FrozenBN scale in [0.5, 1.5], bias in
+    [-0.2, 0.2]) over a channels-last [batch, 3, h, w] input on ``dev``,
+    in call order."""
+    from uwcv_tpu_torch.models import resnet
+
+    torch.manual_seed(seed)
+    net = resnet.ResNet(depth)
+    for mod in net.modules():
+        if isinstance(mod, resnet.FrozenBN):
+            mod.scale.uniform_(0.5, 1.5)
+            mod.bias.uniform_(-0.2, 0.2)
+    net = net.to(dev, dtype)
+    x = torch.randn(batch, 3, h, w, device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    calls, real = [], resnet.frozen_bn_act
+
+    def keep(*args):
+        calls.append(args)
+        return real(*args)
+
+    resnet.frozen_bn_act = keep
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        resnet.frozen_bn_act = real
+    return calls
+
+
+def epilogues(depth: int, training: bool = False) -> int:
+    """``frozen_bn_act`` launches of one ResNet-``depth`` forward on a
+    card: the stem's and 3 a block; in a training step at ``freeze_at`` 2
+    only the frozen stem's and res2's (the chain runs where a gradient
+    flows)."""
+    from uwcv_tpu_torch.models.resnet import STAGE_BLOCKS
+
+    blocks = STAGE_BLOCKS[depth]
+    return 1 + 3 * (blocks[0] if training else sum(blocks))
+
+
+def all_fused(rec, calls: int, what: str) -> None:
+    """Raise unless the recording ``rec`` of an inference run counted
+    ``calls`` epilogues through the op and none on the chain."""
+    got = {k: rec.counters.get(k, 0)
+           for k in ("frozen_bn.fused", "frozen_bn.plain")}
+    if got != {"frozen_bn.fused": calls, "frozen_bn.plain": 0}:
+        raise RuntimeError(f"{what}: trunk epilogues {got}, expected "
+                           f"{calls} fused and none on the chain")
+
+
+def epilogue_bytes(args) -> int:
+    """Least bytes of one ``frozen_bn_act`` call: x and the residual read
+    once, the output written once, the per-channel parameters read."""
+    x, scale, bias, residual, res_scale, res_bias = args[:6]
+    return sum(t.numel() * t.element_size()
+               for t in (x, x, scale, bias, residual, res_scale, res_bias)
+               if t is not None)
+
+
+def check_frozen_bn(dev) -> dict:
+    """``frozen_bn_act`` (``csrc/frozen_bn.cu``) on the trunk's own
+    epilogues: the 49 calls of one R50 forward at the predict cell's
+    shapes (B 8, the 832×1024 canvas, bf16), each bit-identical to the
+    chain, also cast to f32; the whole forward's calls timed beside the
+    chain and their byte bound, with the device split and the host's time
+    a call; then R101's res4 epilogues at the training cell's B 16,
+    800² (16 × {256, 1024} × 50 × 50), the bn1/bn2 one over 8 distinct
+    inputs so that, 41 MB a call, they are read from HBM and not from the
+    50 MB L2.  → the R50 forward's figures, its shape, and ``r101_res4``."""
+    from uwcv_tpu_torch.ops.frozen_bn import (
+        frozen_bn_act,
+        frozen_bn_act_reference,
+    )
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+
+    def same(args) -> bool:
+        with torch.no_grad():
+            got = frozen_bn_act(*args)
+        return torch.equal(bits(got), bits(frozen_bn_act_reference(*args)))
+
+    r50 = trunk_epilogues(50, 8, 832, 1024, dev)
+    if len(r50) != epilogues(50):
+        raise RuntimeError(f"R50 forward made {len(r50)} epilogue calls, "
+                           f"not {epilogues(50)}")
+    as_f32 = lambda args: tuple(a.float() if isinstance(a, torch.Tensor)
+                                else a for a in args)
+    for i, args in enumerate(r50):
+        if not same(args) or (i % 7 == 0 and not same(as_f32(args))):
+            raise RuntimeError(f"frozen_bn_act differs from its chain at "
+                               f"call {i}: {tuple(args[0].shape)}")
+    log(f"  frozen_bn_act: the 49 epilogues of an R50 forward (B 8, "
+        f"832×1024, bf16; every 7th also in f32) bit-identical to the chain")
+
+    def timed(calls, what: str) -> dict:
+        run = lambda: [frozen_bn_act(*a) for a in calls]
+        plain = lambda: [frozen_bn_act_reference(*a) for a in calls]
+        with torch.no_grad():
+            ms = cuda_ms(run, calls=5, groups=5)
+            plain_ms = cuda_ms(plain, calls=2, groups=3, warmup=1)
+            split = device_split(run, calls=5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            host_us = (time.perf_counter() - t0) * 1e6 / len(calls)
+            torch.cuda.synchronize()
+        least = sum(epilogue_bytes(a) for a in calls)
+        b_ms, b_by = bound(least, 0.0, torch.bfloat16)
+        kernel_ms = sum(v for k, v in split.items() if "frozen_bn" in k)
+        log(f"    {what}: {len(calls)} calls {ms:.4f} ms (kernels "
+            f"{kernel_ms:.4f} ms, {least / 1e9:.3f} GB at "
+            f"{least / kernel_ms / 1e9:.3f} TB/s), plain chain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); host "
+            f"{host_us:.1f} us a call; device split {split}")
+        return {"calls": len(calls), "ms": ms, "kernel_ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_bytes": least, "host_us_per_call": host_us,
+                "device_split_ms": split}
+
+    rec = {**timed(r50, "R50 forward, B 8, 832×1024"),
+           "shape": {"depth": 50, "B": 8, "H": 832, "W": 1024,
+                     "dtype": "bfloat16"}}
+    del r50
+    g = torch.Generator(device=dev).manual_seed(11)
+    rand = lambda *s: torch.randn(*s, device=dev, generator=g).to(
+        torch.bfloat16)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+    mids = [(cl(rand(16, 256, 50, 50)), rand(256), rand(256), None, None,
+             None) for _ in range(8)]
+    out = (cl(rand(16, 1024, 50, 50)), rand(1024), rand(1024),
+           cl(rand(16, 1024, 50, 50)), None, None)
+    for args in mids[:1] + [out]:
+        if not same(args):
+            raise RuntimeError(f"frozen_bn_act differs from its chain at "
+                               f"{tuple(args[0].shape)}")
+    rec["r101_res4"] = {
+        "conv1/conv2 epilogue (16, 256, 50, 50), 8 distinct inputs": timed(
+            mids, "R101 res4 bn1/bn2, B 16, 8 distinct inputs"),
+        "conv3 epilogue + identity (16, 1024, 50, 50)": timed(
+            [out], "R101 res4 bn3 + shortcut, B 16")}
+    return rec
+
+
 BWD_TILE = 8     # side of csrc/roi_align_bwd.cu's output tiles (kTile)
 
 
@@ -1053,6 +1208,7 @@ def _launch_counts() -> dict:
 
 
 def _zero_launch_counts() -> None:
+    from uwcv_tpu_torch.ops.frozen_bn import frozen_bn_act
     from uwcv_tpu_torch.ops.mask_paste import paste_claim_pack
     from uwcv_tpu_torch.ops.nms import nms_greedy
     from uwcv_tpu_torch.ops.roi_align import (
@@ -1061,7 +1217,7 @@ def _zero_launch_counts() -> None:
     )
 
     for f in (roi_align_windows, roi_align_windows_backward, nms_greedy,
-              paste_claim_pack):
+              paste_claim_pack, frozen_bn_act):
         f.launches = 0
 
 
@@ -1120,10 +1276,12 @@ def run_folder_full_width(dev, n_images: int = 16, batch: int = 8) -> dict:
     n_batches = -(-n_images // batch)
     want = {"roi_align_windows": 2 * n_batches,
             "roi_align_windows_backward": 0, "nms_greedy": 2 * n_batches,
-            "paste_claim_pack": n_batches}
+            "paste_claim_pack": n_batches,
+            "frozen_bn_act": epilogues(50) * n_batches}
     if launches != want:
         raise RuntimeError(f"folder phase launches {launches}, expected "
-                           f"{want} (2 and 1 a batch × {n_batches})")
+                           f"{want} (2, 1 and 49 a batch × {n_batches})")
+    all_fused(rec, epilogues(50) * n_batches, "folder phase")
     rows = check_rows_decode(result)
     stages, stage_calls = host_stages(rec)
     stage_sum = sum(stages.values())
@@ -1318,6 +1476,9 @@ def run_full_width(dev):
         raise RuntimeError(f"mask tail launches {launches} != 1 per batch")
     if launches["roi_align_windows_backward"]:
         raise RuntimeError(f"inference launched the backward: {launches}")
+    if launches["frozen_bn_act"] != epilogues(50) * n_batches:
+        raise RuntimeError(f"trunk epilogue launches {launches} != "
+                           f"{epilogues(50)} per batch")
     for inst in insts + insts_s:
         if not (np.isfinite(inst.boxes).all() and np.isfinite(inst.scores).all()):
             raise RuntimeError("non-finite detections")
@@ -1462,7 +1623,8 @@ def run_train_full_width(dev) -> dict:
         prev = ev
     want = {"roi_align_windows": 2 * n_steps,
             "roi_align_windows_backward": 2 * n_steps, "nms_greedy": n_steps,
-            "paste_claim_pack": 0}
+            "paste_claim_pack": 0,
+            "frozen_bn_act": epilogues(50, training=True) * n_steps}
     log(f"  train full width R50-FPN-256 bf16 (f32 masters), batch 2 at "
         f"800×800, {len(dicts)} images on the device: {step_ms:.1f} ms/step "
         f"({2e3 / step_ms:.2f} img/s; host clock over {TRAIN_TIMED} steps "
@@ -1604,7 +1766,8 @@ def run_pth_import(dev) -> dict:
         if not (np.isfinite(a.boxes).all() and np.isfinite(a.scores).all()):
             raise RuntimeError("pth import: non-finite detections")
     want = {"roi_align_windows": 4, "roi_align_windows_backward": 0,
-            "nms_greedy": 4, "paste_claim_pack": 2}
+            "nms_greedy": 4, "paste_claim_pack": 2,
+            "frozen_bn_act": 2 * epilogues(101)}
     valid = [int(i.valid.sum()) for i in outs[0]]
     log(f"  .pth and .npz predictors bit-identical on a batch of 8 gray "
         f"1024×1280 images (valid detections per image {valid}); launches "
@@ -1707,7 +1870,9 @@ def run_hpo(dev) -> dict:
     want = {"roi_align_windows": 2 * steps + 2 * eval_batches,
             "roi_align_windows_backward": 2 * steps,
             "nms_greedy": steps + 2 * eval_batches,
-            "paste_claim_pack": eval_batches}
+            "paste_claim_pack": eval_batches,
+            "frozen_bn_act": (epilogues(50, training=True) * steps
+                              + epilogues(50) * eval_batches)}
     log(f"  hpo: {HPO_TRIALS} trials × {HPO_ITERS} steps in {wall:.1f} s "
         f"(synth {synth_s:.1f} s before); {res['eval_predictors']} eval "
         f"predictors built; peak device memory {peak / 2**30:.2f} GiB; "
@@ -1803,15 +1968,19 @@ def _sweep_over_groups(cfg, paths: dict, with_test: bool, **kw) -> tuple:
 
 
 def _check_group_sweep(name: str, res: dict, driver: dict, steps: int,
-                       eval_batches: int, ranks: int, use_map: bool) -> dict:
+                       eval_batches: int, ranks: int, use_map: bool,
+                       depth: int = 50) -> dict:
     """Every trial COMPLETE (segm AP in [0, 1] when scored), ``ranks``
-    ranks with bit-identical masters, each rank's launches B1 2, B1-bwd 2
-    and B2 1 a step, the driver's B1 2 and B2 2 an eval batch.  Prints
-    each trial's seconds.  → the launches summed over ranks and driver."""
+    ranks with bit-identical masters, each rank's launches B1 2, B1-bwd 2,
+    B2 1 and the frozen stages' epilogues a step, the driver's B1 2, B2 2,
+    the mask tail 1 and a ResNet-``depth`` forward's epilogues an eval
+    batch.  Prints each trial's seconds.  → the launches summed over ranks
+    and driver."""
     total = dict(driver)
     per_rank = {"roi_align_windows": 2 * steps,
                 "roi_align_windows_backward": 2 * steps, "nms_greedy": steps,
-                "paste_claim_pack": 0}
+                "paste_claim_pack": 0,
+                "frozen_bn_act": epilogues(depth, training=True) * steps}
     for t in res["trials"]:
         a = t["user_attrs"]
         if t["state"] != "COMPLETE":
@@ -1847,7 +2016,8 @@ def _check_group_sweep(name: str, res: dict, driver: dict, steps: int,
             f"{[round(r['peak_bytes'] / 2**30, 2) for r in reps]} GiB")
     want = {"roi_align_windows": 2 * eval_batches,
             "roi_align_windows_backward": 0, "nms_greedy": 2 * eval_batches,
-            "paste_claim_pack": eval_batches}
+            "paste_claim_pack": eval_batches,
+            "frozen_bn_act": epilogues(depth) * eval_batches}
     if driver != want:
         raise RuntimeError(f"{name}: the driver launched {driver}, expected "
                            f"{want}")
@@ -1917,12 +2087,15 @@ def run_hpo_groups(paths: dict) -> dict:
         torch.backends.cudnn.allow_tf32 = True
     two, one = runs["two gloo ranks"], runs["one process"]
     for k, v in _check_group_sweep("hpo groups equality", two[0], two[1],
-                                   GROUP_EQ_ITERS, 0, 2, False).items():
+                                   GROUP_EQ_ITERS, 0, 2, False,
+                                   depth=m.depth).items():
         launches[k] += v
     t1 = one[0]["trials"][0]
     want_one = {"roi_align_windows": 2 * GROUP_EQ_ITERS,
                 "roi_align_windows_backward": 2 * GROUP_EQ_ITERS,
-                "nms_greedy": GROUP_EQ_ITERS, "paste_claim_pack": 0}
+                "nms_greedy": GROUP_EQ_ITERS, "paste_claim_pack": 0,
+                "frozen_bn_act": (epilogues(m.depth, training=True)
+                                  * GROUP_EQ_ITERS)}
     if t1["state"] != "COMPLETE" or one[1] != want_one:
         raise RuntimeError(f"hpo groups equality: the one-process trial "
                            f"{t1['state']}, launches {one[1]}")
@@ -2112,6 +2285,7 @@ def run_export(dev) -> dict:
     torch.cuda.synchronize()
     live_rate = EXPORT_BATCH * EXPORT_TIMED / (time.perf_counter() - t0)
     live_stages = host_stages(rec, EXPORT_TIMED)[0]
+    all_fused(rec, epilogues(50) * EXPORT_TIMED, "export: the live predictor")
 
     inputs = os.path.join(work, "inputs.npz")
     np.savez(inputs, images=gray)
@@ -2151,7 +2325,8 @@ def run_export(dev) -> dict:
     launches = rec["launches"]
     want_launches = {"roi_align_windows": 2 * batches,
                      "roi_align_windows_backward": 0,
-                     "nms_greedy": 2 * batches, "paste_claim_pack": batches}
+                     "nms_greedy": 2 * batches, "paste_claim_pack": batches,
+                     "frozen_bn_act": epilogues(50) * batches}
     valid = [int(v.sum()) for v in want["full_valid"]]
     log(f"  served in a child process with no model ({child_s:.1f} s in "
         f"all): CUDA context {rec['cuda_init_s']:.2f} s, then load "
@@ -2167,7 +2342,8 @@ def run_export(dev) -> dict:
          for k, v in live_stages.items()}))
     if launches != want_launches:
         raise RuntimeError(f"export launches {launches}, expected "
-                           f"{want_launches} (2 and 1 a batch × {batches})")
+                           f"{want_launches} (2, 1 and 49 a batch × "
+                           f"{batches})")
     if (not rec["no_model"] or sum(valid) == 0
             or rec["exported_batch"] != EXPORT_BATCH
             or tuple(rec["exported_canvas"]) != canvas):
@@ -2368,7 +2544,8 @@ def dp_train(dev, out_dir: str, per_rank: int, warmup: int,
     launches = _launch_counts()
     n = warmup + timed
     want = {"roi_align_windows": 2 * n, "roi_align_windows_backward": 2 * n,
-            "nms_greedy": n, "paste_claim_pack": 0}
+            "nms_greedy": n, "paste_claim_pack": 0,
+            "frozen_bn_act": epilogues(50, training=True) * n}
     if launches != want:
         raise RuntimeError(f"dp train rank {rank}: launches "
                            f"{launches}, expected {want}")
@@ -2558,8 +2735,8 @@ def run_mesh_predict(devices: list) -> dict:
     which); then ``run_batch_inference`` over 16 TIFFs as the folder
     phase's (``write_folder_tiffs``) at batch 5 (16 = 3 × 5 + 1: every chunk is
     padded to a multiple of the data axis, the tail most).  Launch counts
-    are zeroed just before each mesh run: B1 and B2 2 a batch and the
-    mask tail 1 on each device."""
+    are zeroed just before each mesh run: B1 and B2 2 a batch, the mask
+    tail 1 and the trunk's epilogues 49 on each device."""
     from uwcv_tpu_torch.config import Config, ParallelConfig
     from uwcv_tpu_torch.engine.batch_inference import run_batch_inference
     from uwcv_tpu_torch.engine.predictor import Predictor
@@ -2587,7 +2764,8 @@ def run_mesh_predict(devices: list) -> dict:
     batch_s = time.perf_counter() - t0
     launches = _launch_counts()
     want_l = {"roi_align_windows": 2 * d, "roi_align_windows_backward": 0,
-              "nms_greedy": 2 * d, "paste_claim_pack": d}
+              "nms_greedy": 2 * d, "paste_claim_pack": d,
+              "frozen_bn_act": epilogues(50) * d}
     if launches != want_l:
         raise RuntimeError(f"mesh predict launches {launches}, expected "
                            f"{want_l}")
@@ -2630,7 +2808,8 @@ def run_mesh_predict(devices: list) -> dict:
     chunks = -(-n_images // MESH_FOLDER_BATCH)
     want_f = {"roi_align_windows": 2 * chunks * d,
               "roi_align_windows_backward": 0, "nms_greedy": 2 * chunks * d,
-              "paste_claim_pack": chunks * d}
+              "paste_claim_pack": chunks * d,
+              "frozen_bn_act": epilogues(50) * chunks * d}
     if folder_launches != want_f:
         raise RuntimeError(f"mesh folder launches {folder_launches}, "
                            f"expected {want_f}")
@@ -2769,18 +2948,20 @@ def run_sp_predict(cards: list) -> dict:
     ms, and the mesh's outputs beside the one card's (not gated: bf16 and
     cuDNN's per-shape algorithms round differently).  Launch counts are
     zeroed just before each mesh batch: B1 and B2 2 a batch and the mask
-    tail 1 on the row's first device."""
+    tail 1 on the row's first device, the trunk's epilogues 49 a part."""
     from uwcv_tpu_torch.config import Config, ParallelConfig
     from uwcv_tpu_torch.engine.predictor import Predictor
     from uwcv_tpu_torch.parallel.mesh import build_mesh
 
-    want_l = {"roi_align_windows": 2, "roi_align_windows_backward": 0,
-              "nms_greedy": 2, "paste_claim_pack": 1}
-    launches = {k: 0 for k in want_l}
+    launches = {}
     rec = {}
     cuda = torch.device(cards[0]).type == "cuda"
 
     def mesh_batch(pred, images, what):
+        m = pred.mesh.devices.shape[1]
+        want_l = {"roi_align_windows": 2, "roi_align_windows_backward": 0,
+                  "nms_greedy": 2, "paste_claim_pack": 1,
+                  "frozen_bn_act": epilogues(50) * m}
         pred.predict_batch(images)                      # warm-up
         for dev in set(pred.mesh.devices.flat) if cuda else ():
             torch.cuda.synchronize(dev)
@@ -2793,7 +2974,7 @@ def run_sp_predict(cards: list) -> dict:
             raise RuntimeError(f"{what}: launches {counts}, expected "
                                f"{want_l}")
         for k, v in counts.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
         return got, ms
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2909,6 +3090,7 @@ def main(argv=None) -> int:
     bwd_timed, bwd_cases, bwd_args = check_roi_align_backward(dev)
     nms_rec, nms_calls = check_nms(dev)
     tail_rec = check_mask_tail(dev)
+    frozen_bn_rec = check_frozen_bn(dev)
 
     log("[golden] gate checkpoint vs committed JAX outputs")
     check_gate_golden(dev)
@@ -3040,6 +3222,13 @@ def main(argv=None) -> int:
          "library_ms": None, "shape": tail_rec["shape"],
          "device_split_ms": tail_rec["device_split_ms"],
          "cases": tail_rec["cases"]},
+        {"name": "frozen_bn_act", "route": "cuda",
+         "source": "uwcv_tpu_torch/csrc/frozen_bn.cu",
+         "replaces": None,
+         "why": "eager PyTorch runs the trunk's FrozenBN, residual add and "
+                "ReLU as 3-5 broadcast passes where XLA fused them",
+         **counts("frozen_bn_act"), "max_abs_err": 0.0, **frozen_bn_rec,
+         "library_ms": None},
     ]
     if against:
         records[0]["against"] = {k: v for k, v in against.items()

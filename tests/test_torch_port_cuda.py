@@ -11,6 +11,10 @@ import pytest
 import torch
 
 from torch_port_harness import hang_report, hang_report_module  # noqa: F401
+from uwcv_tpu_torch.ops.frozen_bn import (
+    frozen_bn_act,
+    frozen_bn_act_reference,
+)
 from uwcv_tpu_torch.ops.nms import (
     NMS_MAX_N,
     nms_greedy,
@@ -359,8 +363,9 @@ def test_paste_claim_pack_kernel_matches_chain(dev, d, dtype, overlaps):
 
 def test_exported_program_calls_the_mask_tail_kernel(dev, tmp_path):
     """``export_predictor`` → ``load_exported`` on the card: the program
-    calls ``uwcv::paste_claim_pack``, and its packed masks equal
-    ``Predictor._run``'s on the same staged batch."""
+    calls ``uwcv::paste_claim_pack`` once and ``uwcv::frozen_bn_act`` once
+    a conv epilogue, and its packed masks equal ``Predictor._run``'s on
+    the same staged batch."""
     import numpy as np
 
     from chip_smoke import seeded_flax_params
@@ -374,16 +379,19 @@ def test_exported_program_calls_the_mask_tail_kernel(dev, tmp_path):
     path = export_predictor(live, str(tmp_path / "p.pt2"), batch_size=4)
     graph = str(torch.export.load(path).graph)
     assert "paste_claim_pack" in graph
+    assert "frozen_bn_act" in graph
     run, _, _ = load_exported(path, dev)
     rng = np.random.default_rng(4)
     images = [np.repeat(rng.integers(0, 256, (128, 128, 1), dtype=np.uint8),
                         3, axis=-1) for _ in range(4)]
     ops, _ = live.stage_batch(images)
     want = live._run(*ops)
-    before = paste_claim_pack.launches
+    before = (paste_claim_pack.launches, frozen_bn_act.launches)
     got = run(*ops)
     torch.cuda.synchronize()
-    assert paste_claim_pack.launches == before + 1
+    # the trunk's epilogues of ResNet-26: the stem and three a block
+    assert (paste_claim_pack.launches - before[0],
+            frozen_bn_act.launches - before[1]) == (1, 13)
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
     assert want[2].any() and want[1].any()
@@ -563,7 +571,8 @@ def test_hpo_trials_over_groups_of_two_cards(second_card, tmp_path):
     """``run_reference_hpo`` over groups of two cards (``cards // 2``
     groups), one trial a group, each trial in two spawned NCCL ranks:
     every trial completes with its group's masters bit-identical, and the
-    launches follow the formula: per rank B1 2, B1-bwd 2 and B2 1 a step;
+    launches follow the formula: per rank B1 2, B1-bwd 2, B2 1 and the
+    trunk's epilogue 4 (R26's stem and res2, frozen) a step, no mask tail;
     on the driver B1 2 and B2 2 an eval batch."""
     from uwcv_tpu_torch.data.catalog import DatasetCatalog
     from uwcv_tpu_torch.data.synthetic import generate_dataset
@@ -598,7 +607,8 @@ def test_hpo_trials_over_groups_of_two_cards(second_card, tmp_path):
         assert len({r["masters_sha256"] for r in reps}) == 1
         assert all(r["launches"] == {"roi_align_windows": 6,
                                      "roi_align_windows_backward": 6,
-                                     "nms_greedy": 3} for r in reps)
+                                     "nms_greedy": 3, "paste_claim_pack": 0,
+                                     "frozen_bn_act": 12} for r in reps)
         devices |= {r["device"] for r in reps}
     assert devices == {f"cuda:{i}" for i in range(2 * g)}
 
@@ -740,3 +750,239 @@ def test_model_axis_training_and_predict_over_cards(second_card):
     rec = chip_smoke.run_sp_predict([f"cuda:{i}" for i in range(n)])
     assert rec["launches"]["roi_align_windows"] == 6
     assert f"giant (1, {n})" in rec
+
+
+FROZEN_BN_WIDTHS = (64, 128, 256, 512, 1024, 2048)
+
+
+def _epilogue_inputs(dev, dtype, residual, shape, seed=0):
+    """(x, scale, bias, residual, residual_scale, residual_bias), channels
+    last on ``dev``; residual one of "none", "identity", "affine"."""
+    g = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    t = lambda *s: (torch.randn(*s, generator=g) * 2).to(dev, dtype)
+    cl = lambda v: v.contiguous(memory_format=torch.channels_last)
+    x = cl(t(*shape))
+    r = None if residual == "none" else cl(t(*shape))
+    rs, rb = (t(c), t(c)) if residual == "affine" else (None, None)
+    return x, t(c), t(c), r, rs, rb
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("residual", ["none", "identity", "affine"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_frozen_bn_kernel_bit_identical_to_the_chain(dev, dtype, residual):
+    """``csrc/frozen_bn.cu`` against the chain on the card, bit for bit,
+    at every trunk width (64–2048), odd H and W, N 1 and 8: one launch a
+    call, channels-last output."""
+    for c in FROZEN_BN_WIDTHS:
+        for shape in ((1, c, 13, 17), (8, c, 7, 9)):
+            args = _epilogue_inputs(dev, dtype, residual, shape, seed=c)
+            before = frozen_bn_act.launches
+            with torch.no_grad():
+                got = frozen_bn_act(*args)
+            want = frozen_bn_act_reference(*args)
+            assert frozen_bn_act.launches == before + 1
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(_bits(got), _bits(want)), (shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_frozen_bn_kernel_at_the_trunks_shapes(dev, dtype):
+    """The R50 predict cell's largest epilogues (B 8 on the 832×1024
+    canvas: the stem's and res2's, with a projection shortcut) and R101's
+    res4 at B 16, 800²: bit-equal to the chain, past many grid strides."""
+    cases = (((8, 64, 416, 512), "none"), ((8, 256, 208, 256), "affine"),
+             ((16, 1024, 50, 50), "identity"))
+    for shape, residual in cases:
+        args = _epilogue_inputs(dev, dtype, residual, shape)
+        with torch.no_grad():
+            got = frozen_bn_act(*args)
+        want = frozen_bn_act_reference(*args)
+        assert torch.equal(_bits(got), _bits(want)), shape
+
+
+def test_frozen_bn_kernel_keeps_the_chains_special_values(dev):
+    """NaN, ±inf, overflow to inf in bf16, ±0 and subnormal products: the
+    same values as the chain (NaN where it has NaN)."""
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                            -0.0, 3e38, -3e38, 1e-38, -1e-38, 1.0])
+    for dtype in (torch.float32, torch.bfloat16):
+        x, s, b, r, rs, rb = _epilogue_inputs(dev, dtype, "affine",
+                                              (2, 16, 5, 7))
+        flat = x.permute(0, 2, 3, 1).reshape(-1)
+        flat[:special.numel()] = special.to(dtype).to(dev)
+        s[:3] = torch.tensor([1e30, 0.0, -1.0]).to(dtype).to(dev)
+        with torch.no_grad():
+            got = frozen_bn_act(x, s, b, r, rs, rb)
+        want = frozen_bn_act_reference(x, s, b, r, rs, rb)
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+def test_frozen_bn_kernel_rejects_what_it_does_not_take(dev):
+    """A contiguous NCHW CUDA input, C % 8 != 0 and mixed dtypes raise: no
+    fallback to the chain."""
+    x, s, b, _, _, _ = _epilogue_inputs(dev, torch.bfloat16, "none",
+                                        (2, 16, 5, 7))
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            frozen_bn_act(x.contiguous(), s, b)
+        with pytest.raises(ValueError):
+            frozen_bn_act(x[:, :12].contiguous(
+                memory_format=torch.channels_last), s[:12], b[:12])
+        with pytest.raises(ValueError):
+            frozen_bn_act(x, s.float(), b)
+
+
+def test_r50_predictor_on_card_equals_the_plain_chain(dev, monkeypatch):
+    """A full-width R50 predictor (bf16, seeded) on the card: 49 kernel
+    launches a forward (the stem and 3 in each of 16 blocks), all counted
+    ``frozen_bn.fused``, and every output bit-equal to the same batch run
+    with the trunk's epilogues on the chain (which the test puts in the
+    trunk's place)."""
+    import numpy as np
+
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.config import Config
+    from uwcv_tpu_torch.engine.predictor import Predictor
+    from uwcv_tpu_torch.models import resnet
+    from uwcv_tpu_torch.utils import trace
+
+    cfg = Config()
+    cfg.model.roi_score_thresh_test = 0.0
+    cfg.input.test_short_edge = cfg.input.test_max_size = 320
+    cfg.input.pad_size_test = (320, 320)
+    pred = Predictor(cfg, seeded_flax_params(cfg.model, 0), device=dev)
+    rng = np.random.default_rng(5)
+    images = [rng.integers(0, 256, (300, 320, 3), dtype=np.uint8)
+              for _ in range(4)]
+    ops, _ = pred.stage_batch(images)
+    before = frozen_bn_act.launches
+    with trace.recording() as rec:
+        got = pred._run(*ops)
+    torch.cuda.synchronize()
+    assert frozen_bn_act.launches - before == 49
+    assert rec.counters.get("frozen_bn.fused") == 49
+    assert "frozen_bn.plain" not in rec.counters
+    monkeypatch.setattr(resnet, "frozen_bn_act", frozen_bn_act_reference)
+    x = pred.model._model_input(ops[0])
+    with torch.no_grad():
+        want_c = pred.model.backbone(x)
+        want = pred._run(*ops)
+    monkeypatch.undo()
+    with torch.no_grad():
+        got_c = pred.model.backbone(x)
+    for k in want_c:
+        assert torch.equal(_bits(got_c[k]), _bits(want_c[k])), k
+    dets_got, packed_got, keep_got = got
+    dets_want, packed_want, keep_want = want
+    for a, b in zip(dets_got, dets_want):
+        assert torch.equal(a, b)
+    assert torch.equal(packed_got, packed_want)
+    assert torch.equal(keep_got, keep_want)
+    assert dets_want.valid.any()
+
+
+def test_r101_training_step_fuses_only_the_frozen_stages(dev, tmp_path):
+    """One bf16 training step of R101 with ``freeze_at`` 2 on the card:
+    the stem and res2 (no gradient) take the kernel, 10 calls; res3–res5
+    keep the chain, 90 calls."""
+    import numpy as np
+
+    from chip_smoke import seeded_flax_params
+    from uwcv_tpu_torch.engine.trainer import Trainer, step_generator
+    from uwcv_tpu_torch.utils import trace
+
+    cfg = _small_cfg()
+    cfg.model.depth = 101
+    cfg.solver.freeze_at = 2
+    cfg.output_dir = str(tmp_path)
+    tr = Trainer(cfg, device=dev)
+    tr.load_params(seeded_flax_params(cfg.model, 0))
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((2, 8, 4), np.float32)
+    boxes[:, :3] = [[10, 10, 60, 50], [70, 20, 120, 90], [5, 80, 40, 125]]
+    masks = np.zeros((2, 8, 128, 128), bool)
+    for i, (x1, y1, x2, y2) in enumerate(boxes[0, :3].astype(int)):
+        masks[:, i, y1:y2, x1:x2] = True
+    batch = {"image": torch.from_numpy(rng.integers(0, 256, (2, 128, 128, 3),
+                                                    dtype=np.uint8)),
+             "boxes": torch.from_numpy(boxes),
+             "classes": torch.zeros(2, 8, dtype=torch.int32),
+             "valid": torch.from_numpy((boxes[..., 2] > 0)),
+             "masks_packed": torch.from_numpy(np.packbits(masks, axis=-1))}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    before = frozen_bn_act.launches
+    with trace.recording() as rec:
+        metrics = tr.train_step(batch, step_generator(0, 0, dev))
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert frozen_bn_act.launches - before == 10
+    assert (rec.counters.get("frozen_bn.fused"),
+            rec.counters.get("frozen_bn.plain")) == (10, 90)
+
+
+def test_frozen_bn_kernel_runs_on_the_second_card(second_card):
+    """With cuda:0 the thread's current device, the epilogue launches on
+    cuda:1, where its tensors lie, bit-equal to the chain there; and row
+    shards on cuda:0 and cuda:1 (the model axis in one process) take the
+    op part by part."""
+    from uwcv_tpu_torch.parallel.spatial import Shards
+
+    args = _epilogue_inputs(second_card, torch.bfloat16, "affine",
+                            (2, 256, 33, 40))
+    with torch.cuda.device(0), torch.no_grad():
+        got = frozen_bn_act(*args)
+        want = frozen_bn_act_reference(*args)
+        assert torch.equal(_bits(got), _bits(want))
+        x, s, b, r, rs, rb = args
+        split = lambda t: Shards([t[:, :, :16].to("cuda:0").contiguous(
+            memory_format=torch.channels_last), t[:, :, 16:].contiguous(
+                memory_format=torch.channels_last)])
+        before = frozen_bn_act.launches
+        parts = frozen_bn_act(split(x), s, b, split(r), rs, rb).parts
+        assert frozen_bn_act.launches == before + 2
+        assert [p.device for p in parts] == [torch.device("cuda", 0),
+                                             second_card]
+        assert torch.equal(_bits(torch.cat([parts[0].to(second_card),
+                                            parts[1]], 2)), _bits(want))
+    torch.cuda.synchronize(second_card)
+
+
+def test_batch_one_row_shards_take_the_kernel_on_card(dev):
+    """A batch-1 micrograph over four row shards of one card (``DeviceRow``
+    of ``cuda:0`` four times): every epilogue's parts are channels-last, so
+    each launches the kernel (13 a part), and the levels equal the
+    unsharded trunk's within 1e-5 of their largest in f32, TF32 off."""
+    from uwcv_tpu_torch.models.resnet import FrozenBN, ResNet
+    from uwcv_tpu_torch.parallel import mesh, spatial
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        net = ResNet(26)
+        for mod in net.modules():
+            if isinstance(mod, FrozenBN):
+                mod.scale.uniform_(0.5, 1.5)
+                mod.bias.uniform_(-0.2, 0.2)
+        net = net.to(dev)
+        img = torch.randn(1, 3, 512, 128, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        rows = mesh.height_shards(512, 4)
+        with torch.no_grad():
+            want = net(img)
+            before = frozen_bn_act.launches
+            got = net(spatial.Shards([img[:, :, a:b].contiguous(
+                memory_format=torch.channels_last) for a, b in rows]),
+                spatial.DeviceRow([dev] * 4))
+        assert frozen_bn_act.launches - before == 4 * 13
+        for k in want:
+            torch.testing.assert_close(
+                torch.cat(got[k].parts, 2), want[k], rtol=1e-5,
+                atol=1e-5 * float(want[k].abs().max()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -108,6 +108,14 @@ def test_program_keeps_the_kernel_ops_and_the_loops(gate):
     assert count("cond") == 1
 
 
+def test_program_keeps_the_trunk_epilogue_op(gate):
+    """The saved program calls ``uwcv::frozen_bn_act`` once a conv
+    epilogue of the gate's ResNet-26: the stem and three a block."""
+    graph = torch.export.load(gate["path"]).graph
+    assert sum(str(n.target) == "uwcv.frozen_bn_act.default"
+               for n in graph.nodes if n.op == "call_function") == 13
+
+
 @pytest.mark.parametrize("i", range(BATCH))
 def test_served_matches_live_port_predictor(gate, i):
     assert gate["want"][i].valid.any()

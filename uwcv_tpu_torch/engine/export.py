@@ -9,9 +9,11 @@ one ``.pt2`` file.  A serving process calls ``Predictor.from_exported(cfg,
 path)`` and gets the same host API without building the model:
 
 - the CUDA kernels stay in the program as the ops
-  ``uwcv::roi_align_windows``, ``uwcv::nms_greedy`` and
-  ``uwcv::paste_claim_pack``; loading needs only the modules that register
-  them (``ops/roi_align.py``, ``ops/nms.py``, ``ops/mask_paste.py``);
+  ``uwcv::roi_align_windows``, ``uwcv::nms_greedy``,
+  ``uwcv::paste_claim_pack`` and ``uwcv::frozen_bn_act`` (the trunk's conv
+  epilogues); loading needs only the modules that register them
+  (``ops/roi_align.py``, ``ops/nms.py``, ``ops/mask_paste.py``,
+  ``ops/frozen_bn.py``);
 - the morphology floods are ``while_loop``s and the unit-scale fast path a
   ``torch.cond``, so no host check is baked in;
 - smaller batches and canvases are zero-padded in and sliced out;
@@ -34,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 # the ops' registrations, which a loaded program calls
+import uwcv_tpu_torch.ops.frozen_bn  # noqa: F401
 import uwcv_tpu_torch.ops.mask_paste  # noqa: F401
 import uwcv_tpu_torch.ops.nms  # noqa: F401
 import uwcv_tpu_torch.ops.roi_align  # noqa: F401

@@ -64,6 +64,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # stream
         "uwcv_paste_claim_pack": (_P,) * 9 + (_I,) * 8 + (_P,),
     },
+    "frozen_bn": {
+        # x, residual, scale, bias, residual scale and bias, out, vectors,
+        # channel vectors a pixel, residual mode, bf16, stream
+        "uwcv_frozen_bn_act": (_P,) * 7 + (_I,) * 4 + (_P,),
+    },
 }
 # C entry points of each host source: name → (restype, argtypes)
 HOST_SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -184,6 +189,7 @@ def count_launch(wrapper) -> None:
 def launch_counts() -> Dict[str, int]:
     """This process's kernel launches so far, by wrapper (the counters are
     per process)."""
+    from uwcv_tpu_torch.ops.frozen_bn import frozen_bn_act
     from uwcv_tpu_torch.ops.mask_paste import paste_claim_pack
     from uwcv_tpu_torch.ops.nms import nms_greedy
     from uwcv_tpu_torch.ops.roi_align import (
@@ -193,7 +199,7 @@ def launch_counts() -> Dict[str, int]:
 
     return {f.__name__: f.launches for f in (
         roi_align_windows, roi_align_windows_backward, nms_greedy,
-        paste_claim_pack)}
+        paste_claim_pack, frozen_bn_act)}
 
 
 def check(rc: int, what: str) -> None:

@@ -3,6 +3,10 @@
 Internally NCHW (channels-last memory on the GPU, which cuDNN prefers and
 which makes the NHWC view at the port's public functions free).  FrozenBN
 is a per-channel affine in the compute dtype; stride sits on the 3×3 conv.
+Each FrozenBN but a projection's takes what follows it up to the next conv
+(the ReLU, and in a block's last one the shortcut, under the projection's
+FrozenBN where there is one) as one ``ops/frozen_bn.py::frozen_bn_act``: one
+kernel pass on a card where no gradient flows through it.
 Module and buffer names follow the Flax param tree, so
 ``weights.params_from_flax`` maps each leaf by name.
 
@@ -14,12 +18,12 @@ row-local.  Without one it is the plain module.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from uwcv_tpu_torch.ops.frozen_bn import frozen_bn_act
 from uwcv_tpu_torch.parallel.spatial import spatial_conv2d, spatial_max_pool2d
 
 # 26 is a minimal 1-block-per-stage variant for tests/smoke runs; 50/101 are
@@ -29,15 +33,22 @@ STAGE_BLOCKS = {26: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
 class FrozenBN(nn.Module):
     """y = x·scale + bias per channel (FrozenBatchNorm2d after folding),
-    computed in the compute dtype like the Flax module (resnet.py:55)."""
+    computed in the compute dtype like the Flax module (resnet.py:55);
+    then ``+ residual`` (under ``residual_bn`` when given) and the ReLU.
+    A projection's FrozenBN is not called: the block hands it to its last
+    one as ``residual_bn``."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.register_buffer("scale", torch.ones(channels))
         self.register_buffer("bias", torch.zeros(channels))
 
-    def forward(self, x):
-        return x * self.scale.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+    def forward(self, x, residual=None,
+                residual_bn: Optional["FrozenBN"] = None):
+        return frozen_bn_act(
+            x, self.scale, self.bias, residual,
+            None if residual_bn is None else residual_bn.scale,
+            None if residual_bn is None else residual_bn.bias)
 
 
 class Bottleneck(nn.Module):
@@ -61,13 +72,12 @@ class Bottleneck(nn.Module):
         self.bn3 = FrozenBN(out_channels)
 
     def forward(self, x, axis=None):
-        shortcut = x
-        if self.use_projection:
-            shortcut = self.shortcut_bn(self.shortcut_conv(x))
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(spatial_conv2d(y, self.conv2, axis)))
-        y = self.bn3(self.conv3(y))
-        return F.relu(y + shortcut)
+        shortcut = self.shortcut_conv(x) if self.use_projection else x
+        y = self.bn1(self.conv1(x))
+        y = self.bn2(spatial_conv2d(y, self.conv2, axis))
+        return self.bn3(self.conv3(y), residual=shortcut,
+                        residual_bn=(self.shortcut_bn if self.use_projection
+                                     else None))
 
 
 class ResNet(nn.Module):
@@ -91,7 +101,7 @@ class ResNet(nn.Module):
                 in_c = out_c
 
     def forward(self, x, axis=None) -> Dict[str, torch.Tensor]:
-        x = F.relu(self.stem_bn(spatial_conv2d(x, self.stem_conv, axis)))
+        x = self.stem_bn(spatial_conv2d(x, self.stem_conv, axis))
         x = spatial_max_pool2d(x, 3, 2, 1, axis)
         feats = {}
         for stage, n_blocks in enumerate(self.blocks):

@@ -223,13 +223,16 @@ def _each(x, axis, fn: Callable) -> object:
 
 def _halo_then_pad(x, k: int, s: int, p: int, axis, value: float):
     """The halo of a (k, s, p) window over the rows, then the global edges
-    padded with ``p`` rows of ``value``."""
+    padded with ``p`` rows of ``value``, in the shard's memory format (a
+    shard that took no halo rows comes back from the exchange as a view
+    whose strides ``F.pad`` would read as contiguous at batch 1)."""
     x = halo_exchange(x, p, max(k - p - s, 0), axis)
     last = axis.size - 1
 
     def pad(t, j):
-        rows = (p if j == 0 else 0, p if j == last else 0)
-        return F.pad(t, (0, 0) + rows, value=value) if any(rows) else t
+        edge = lambda here: t.new_full(_rows_like(t, p), value) \
+            if here and p else None
+        return _stack_rows(edge(j == 0), t, edge(j == last))
 
     return _each(x, axis, pad)
 
